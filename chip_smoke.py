@@ -7,12 +7,16 @@ Drives the port's volsurfs slice at the width of config/volsurfs/base_5.cfg
 on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/:
 
 1. the card's name and power limit;
-2. builds the CUDA kernels (nvcc) and the native BVH builder (g++) into
-   volsurfs_tpu_torch/_build/;
+2. builds the CUDA kernels (one nvcc per csrc/*.cu source, in parallel) and
+   the native BVH builder (g++) into volsurfs_tpu_torch/_build/, with each
+   kernel's registers and spills as ptxas reports them;
 3. kernel K1 (table-gradient scatter-add) against its plain version at the
    train step's shape and at a collision-heavy one, with times;
-4. kernel K2 (k-shell BVH trace) against its plain version on the 65,536
-   rays of one 256x256 test camera, with times;
+4. kernel K2 (k-shell BVH trace) against its plain version, bit for bit,
+   at three shapes: the train step's 5 x 512 rays (drawn from the tensor
+   reel), one 16,384-ray render chunk and a whole 256x256 frame, with times
+   (inputs and timers from volsurfs_tpu_torch/kernel_bench.py, the scene
+   from volsurfs_tpu_torch/datasets/sphere_scene.py);
 5. 60 train steps of 512 rays on the procedural sphere scene, the last 3
    under torch.profiler (device-busy time, launches, idle share);
 6. a 256x256 test frame rendered in 16384-ray chunks, its PSNR and rate,
@@ -32,7 +36,6 @@ faulthandler.dump_traceback_later(480, exit=True)
 
 import json  # noqa: E402
 import os  # noqa: E402
-import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
 
@@ -40,22 +43,20 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-MESH_DIR = os.path.join(REPO, "runs", "pipeline_tpu_256", "volsurfs", "meshes")
 CFG = os.path.join(REPO, "config", "volsurfs", "base_5.cfg")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # operations counted for the trace bound: one slab box test of an inner
-# node, one Moller-Trumbore test of a real (non-pad) leaf triangle (fmas
-# counted as two)
+# node, one Moller-Trumbore test of a real leaf triangle (fmas counted as
+# two)
 BOX_TEST_FLOPS = 24
 TRIANGLE_TEST_FLOPS = 50
 
 TRAIN_STEPS = 60
 WARMUP_STEPS = 10
 PROFILED_STEPS = 3
-CHUNK = 16384
 
 _T0 = time.perf_counter()
 
@@ -65,51 +66,6 @@ def emit(phase, **fields):
           flush=True)
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median of reps CUDA-event timings of one fn() call, after warmup
-    calls. A spin kernel queued before the start event keeps the device
-    busy while the host enqueues fn's launches, so the events time the
-    device's work rather than the host's issue rate (a wrapper that syncs
-    inside is timed to its sync)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def device_kernels(prof):
-    """The device-side kernel events of a profile (without the ranges that
-    annotations such as ``Optimizer.step`` leave on the device timeline)."""
-    return [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)
-    ]
-
-
-def device_ms(fn, reps=10):
-    """Device time per fn() call: the sum of its kernels' times in a
-    torch.profiler trace of reps calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time for e in device_kernels(prof)) / reps / 1e3
-
-
 def profiled(fn, reps):
     """fn() run reps times under torch.profiler (CPU and CUDA activity).
     Returns per call: host wall ms (ending in a synchronize), device-busy
@@ -117,6 +73,8 @@ def profiled(fn, reps):
     kernel launches, the device's idle share of the wall time, and the five
     kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from volsurfs_tpu_torch.kernel_bench import device_kernels
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -148,10 +106,9 @@ def phase_device():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
     if not os.path.isdir(os.path.join(REPO, "volsurfs_tpu_torch")):
         raise SystemExit(f"chip_smoke: no volsurfs_tpu_torch package beside {__file__}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from volsurfs_tpu_torch.kernel_bench import card
+
+    smi = card()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, torch_name=name, count=torch.cuda.device_count(),
@@ -167,7 +124,10 @@ def phase_build():
     t_nvcc = time.perf_counter() - t
     t = time.perf_counter()
     _build.bvh_builder()
-    emit("build", nvcc_s=round(t_nvcc, 3), gxx_s=round(time.perf_counter() - t, 3))
+    resources = _build.kernel_resources()
+    emit("build", nvcc_s=round(t_nvcc, 3), gxx_s=round(time.perf_counter() - t, 3),
+         ptxas=resources)
+    return resources
 
 
 def scatter_tolerance(rows, upd, total_rows):
@@ -182,27 +142,11 @@ def phase_scatter_add(device):
     """K1 against its plain version: the hash-grid backward's shape (16
     levels of a real HashGrid2D table, 4 lerp corners x 512 rays x 4 hash
     corners per level, F=2), and every update into 8 rows."""
-    from volsurfs_tpu_torch.models.textures import HashGrid2D
+    from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import scatter_add as S
 
-    grid = HashGrid2D()
-    sizes, total = grid.sizes, grid.total_rows
-    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    per_level = 4 * 512 * 4
-    rng = np.random.default_rng(0)
-    main_rows = np.concatenate(
-        [rng.integers(0, s, per_level) + o for s, o in zip(sizes, offsets)]
-    )
-    cases = {
-        "hashgrid_backward": (main_rows, total),
-        "collide_8_rows": (rng.integers(0, 8, main_rows.shape[0]), 8),
-    }
     results = {}
-    for case, (rows_np, nr_rows) in cases.items():
-        rows = torch.from_numpy(rows_np.astype(np.int32)).to(device)
-        upd = torch.from_numpy(
-            rng.standard_normal((rows_np.shape[0], 2)).astype(np.float32)
-        ).to(device)
+    for case, (rows, upd, nr_rows) in kb.k1_cases(device).items():
         out = S.scatter_add_rows(rows, upd, nr_rows)
         ref = S.scatter_add_rows_reference(rows, upd, nr_rows)
         err = (out - ref).abs()
@@ -219,8 +163,8 @@ def phase_scatter_add(device):
         }
         times = {}
         for prefix, fn in calls.items():
-            times[prefix + "ms"] = time_ms(fn)
-            times[prefix + "device_ms"] = device_ms(fn)
+            times[prefix + "ms"] = kb.time_ms(fn)
+            times[prefix + "device_ms"] = kb.device_ms(fn)
         m = rows.shape[0]
         nbytes = 4 * m + 8 * m + 8 * nr_rows  # rows, updates read; table written
         bound_ms = max(nbytes / HBM_BYTES_PER_S, 2 * m / F32_FLOPS_PER_S) * 1e3
@@ -233,59 +177,57 @@ def phase_scatter_add(device):
     return results["hashgrid_backward"]
 
 
-def load_shells():
-    from volsurfs_tpu_torch.baking.mesh_io import load_obj
-
-    files = sorted(f for f in os.listdir(MESH_DIR) if f.endswith(".obj"))
-    return [load_obj(os.path.join(MESH_DIR, f)) for f in files]
-
-
-def test_camera_rays(device, size):
-    from volsurfs_tpu_torch.datasets.cameras import get_camera_rays
-    from volsurfs_tpu_torch.datasets.synthetic import make_synthetic_split
-
-    cams, rgbs, _ = make_synthetic_split(4, size, size, cam_radius=2.0, sphere_radius=0.5, seed=1)
-    rays_o, rays_d = get_camera_rays(cams[0])
-    return (torch.from_numpy(rays_o).to(device), torch.from_numpy(rays_d).to(device), rgbs[0])
-
-
-def phase_trace(device, shells, rays_o, rays_d):
-    """K2 against its plain version on every shell x every camera ray."""
+def phase_trace(device, shells, reel):
+    """K2 against its plain version on every shell x the rays of each of
+    the three shapes (the train step's drawn from reel): every output bit
+    for bit, no cursor over its step cap. Returns each shape's result."""
+    from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import bvh as B
 
     t = time.perf_counter()
     stacked = B.stack_bvhs([B.build_bvh(v, f) for v, f, _ in shells], device)
     build_s = time.perf_counter() - t
-    out = B.trace_all(stacked, rays_o, rays_d)
-    ref, work = B.trace_all_reference(stacked, rays_o, rays_d, return_work=True)
-    stacked.check_step_cap()
-    hit_mismatch = int((out["is_hit"] != ref["is_hit"]).sum())
-    depth_err = float((out["depth"] - ref["depth"]).abs().max())
-    bary_err = float((out["barycentric"] - ref["barycentric"]).abs().max())
-    tri_differ = int((out["triangles_id"] != ref["triangles_id"]).sum())
-    tri_mismatch = B.face_id_mismatches([(v, f) for v, f, _ in shells], out, ref, rays_o, rays_d)
-    ms = time_ms(lambda: B.trace_all(stacked, rays_o, rays_d))
-    kernel_device_ms = device_ms(lambda: B.trace_all(stacked, rays_o, rays_d))
-    plain_ms = time_ms(lambda: B.trace_all_reference(stacked, rays_o, rays_d), reps=3, warmup=1)
-    stacked.check_step_cap()
-    k, R = stacked.node_begin.shape[0], rays_o.shape[0]
-    nbytes = stacked.packed.numel() * 4 + 24 * R + 16 * k * R
-    flops = (work["box_tests"] * BOX_TEST_FLOPS
-             + work["triangle_tests"] * TRIANGLE_TEST_FLOPS)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    result = dict(
-        shells=k, rays=R, nodes=int(stacked.packed.shape[0]), bvh_build_s=build_s,
-        hit_frac=float(out["is_hit"].float().mean()), hit_mismatch=hit_mismatch,
-        depth_max_abs_err=depth_err, bary_max_abs_err=bary_err,
-        tri_differ=tri_differ, tri_mismatch_beyond_ties=tri_mismatch, **work,
-        ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
-        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
-        max_abs_err=max(depth_err, bary_err),
-    )
-    emit("k2_bvh_trace", **result)
-    if hit_mismatch or depth_err > 1e-5 or bary_err > 1e-5 or tri_mismatch:
-        raise AssertionError(f"K2 disagrees with its plain version: {result}")
-    return result
+    table_bytes = sum(x.numel() * x.element_size() for x in (stacked.nodes, stacked.tris))
+    node_bytes, tri_bytes = stacked.nodes[0].nbytes, stacked.tris[0].nbytes
+    meshes = [(v, f) for v, f, _ in shells]
+    results = {}
+    for shape, (rays_o, rays_d) in kb.k2_rays(device, reel).items():
+        out = B.trace_all(stacked, rays_o, rays_d)
+        ref, work = B.trace_all_reference(stacked, rays_o, rays_d, return_work=True)
+        stacked.check_step_cap()
+        unequal = [key for key in ("is_hit", "depth", "positions", "barycentric", "triangles_id")
+                   if not torch.equal(out[key], ref[key])]
+        depth_err = float((out["depth"] - ref["depth"]).abs().max())
+        bary_err = float((out["barycentric"] - ref["barycentric"]).abs().max())
+        fn = lambda: B.trace_all(stacked, rays_o, rays_d)  # noqa: E731
+        ms, kernel_device_ms = kb.time_ms(fn), kb.device_ms(fn)
+        plain_ms = kb.time_ms(lambda: B.trace_all_reference(stacked, rays_o, rays_d),
+                              reps=3, warmup=1)
+        stacked.check_step_cap()
+        k, R = stacked.node_begin.shape[0], rays_o.shape[0]
+        # the nodes and triangles these rays read, rays in, (t, id, u, v) out
+        nbytes = (work["nodes_read"] * node_bytes + work["triangles_read"] * tri_bytes
+                  + 24 * R + 16 * k * R)
+        flops = (work["box_tests"] * BOX_TEST_FLOPS
+                 + work["triangle_tests"] * TRIANGLE_TEST_FLOPS)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        results[shape] = dict(
+            shape=shape, shells=k, rays=R, nodes=int(stacked.nodes.shape[0]),
+            triangles=int(stacked.tris.shape[0]), table_bytes=table_bytes,
+            bvh_build_s=build_s, hit_frac=float(out["is_hit"].float().mean()),
+            unequal_outputs=unequal, depth_max_abs_err=depth_err, bary_max_abs_err=bary_err,
+            tri_differ=int((out["triangles_id"] != ref["triangles_id"]).sum()),
+            tri_mismatch_beyond_ties=B.face_id_mismatches(meshes, out, ref, rays_o, rays_d),
+            step_cap_overflows=int(stacked.step_cap.count.item()), **work,
+            ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=max(depth_err, bary_err),
+        )
+        emit("k2_bvh_trace", **results[shape])
+        if unequal or results[shape]["step_cap_overflows"]:
+            raise AssertionError(f"K2 disagrees with its plain version: {results[shape]}")
+    return results
 
 
 def smoke_hyper_params():
@@ -302,17 +244,12 @@ def smoke_hyper_params():
     return hp
 
 
-def phase_train(device, shells, hp, steps=TRAIN_STEPS, size=256, nr_cameras=24):
-    from volsurfs_tpu_torch.datasets.synthetic import make_synthetic_split
-    from volsurfs_tpu_torch.datasets.tensor_reel import get_next_rays_batch, make_tensor_reel
+def phase_train(device, shells, reel, hp, steps=TRAIN_STEPS):
+    from volsurfs_tpu_torch.datasets.tensor_reel import get_next_rays_batch
     from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
     from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
 
     t = time.perf_counter()
-    cams, rgbs, masks = make_synthetic_split(
-        nr_cameras, size, size, cam_radius=2.0, sphere_radius=0.5, seed=0
-    )
-    reel = make_tensor_reel(cams, rgbs, masks, device=device)
     method = VolSurfs(hp, shells, bg_color="white",
                       bounding_primitive=make_bounding_sphere(1.0), device=device, seed=0)
     n_params = sum(p.numel() for p in method.models.parameters())
@@ -355,7 +292,7 @@ def phase_train(device, shells, hp, steps=TRAIN_STEPS, size=256, nr_cameras=24):
     return method
 
 
-def phase_render(device, method, rays_o, rays_d, gt, chunk=CHUNK):
+def phase_render(device, method, rays_o, rays_d, gt, chunk):
     from volsurfs_tpu_torch.methods.base import render_frame_chunked
 
     render = method.make_render_fn()
@@ -385,40 +322,51 @@ def phase_render(device, method, rays_o, rays_d, gt, chunk=CHUNK):
 def main():
     name, smi = phase_device()
     device = torch.device("cuda")
-    phase_build()
-    k1 = phase_scatter_add(device)
-    shells = load_shells()
-    rays_o, rays_d, gt = test_camera_rays(device, 256)
-    k2 = phase_trace(device, shells, rays_o, rays_d)
+    resources = phase_build()
 
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.datasets import sphere_scene
+    from volsurfs_tpu_torch.datasets.tensor_reel import make_tensor_reel
     from volsurfs_tpu_torch.ops import bvh, scatter_add
 
+    k1 = phase_scatter_add(device)
+    shells = sphere_scene.load_shells()
+    reel = make_tensor_reel(*sphere_scene.train_split(), device=device)
+    k2_shapes = phase_trace(device, shells, reel)
+    k2 = k2_shapes[f"frame_5x{sphere_scene.FRAME ** 2}"]
+
+    rays_o, rays_d, gt = sphere_scene.test_camera(device)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the main path: train, then render
-    method = phase_train(device, shells, smoke_hyper_params())
+    method = phase_train(device, shells, reel, smoke_hyper_params())
     method.stacked_bvh.check_step_cap()
-    phase_render(device, method, rays_o, rays_d, gt)
+    phase_render(device, method, rays_o, rays_d, gt, kb.CHUNK)
     method.stacked_bvh.check_step_cap()
     counts = {**scatter_add.launches, **bvh.launches}
 
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
              replaces="volsurfs_tpu/ops/pallas/scatter_add.py:107",
              launches=counts["scatter_add"], plain_launches=counts["scatter_add_reference"],
-             **{k: k1[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")}),
+             shape="hashgrid_backward",
+             registers=resources.get("scatter_add_rows_f2_kernel", {}).get("registers"),
+             **{k: k1[k] for k in keys}),
         dict(name="bvh_trace", route="cuda",
              source="volsurfs_tpu_torch/csrc/bvh_trace.cu",
              replaces="volsurfs_tpu/ops/bvh.py:490",
              launches=counts["bvh_trace"], plain_launches=counts["bvh_trace_reference"],
-             **{k: k2[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")}),
+             shape=k2["shape"],
+             registers=resources.get("bvh_trace_kernel", {}).get("registers"),
+             **{k: k2[k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:
         if k["launches"] <= 0 or k["plain_launches"] != 0:
             raise AssertionError(f"main path did not run {k['name']} as a kernel: {k}")
+        if k["registers"] is None:
+            raise AssertionError(f"ptxas reported no registers for {k['name']}: {resources}")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

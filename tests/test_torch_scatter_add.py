@@ -3,6 +3,7 @@ of kernel K1) with the JAX package's Pallas kernel and with numpy."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from volsurfs_tpu.ops.pallas.scatter_add import scatter_add_levels as jax_scatter_add_levels
@@ -50,3 +51,18 @@ def test_scatter_add_collision_heavy_matches_numpy():
     out = S.scatter_add_rows(torch.from_numpy(rows), torch.from_numpy(upd), 128)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-4)
     assert np.all(out.numpy()[8:] == 0.0)
+
+
+@pytest.mark.parametrize("nr_feat", [1, 2, 3])
+def test_scatter_add_rows_reference_matches_numpy(nr_feat):
+    """The plain version for every width the kernel takes: F=2 has the
+    kernel's float2 path, other widths its one-value-a-thread path."""
+    rng = np.random.default_rng(6 + nr_feat)
+    nr_rows, M = 300, 5000
+    rows = rng.integers(0, nr_rows, M).astype(np.int32)
+    upd = rng.standard_normal((M, nr_feat)).astype(np.float32)
+    ref = np.zeros((nr_rows, nr_feat), np.float64)
+    np.add.at(ref, rows, upd.astype(np.float64))
+    out = S.scatter_add_rows_reference(torch.from_numpy(rows), torch.from_numpy(upd), nr_rows)
+    assert out.shape == (nr_rows, nr_feat) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)

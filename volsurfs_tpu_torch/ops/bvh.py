@@ -3,12 +3,16 @@
 Counterpart of volsurfs_tpu/ops/bvh.py. The host half builds each mesh's
 BVH with the native binned-SAH builder (``native/bvh_build.cpp``, compiled
 by ``_build.bvh_builder``) and flattens it depth-first with miss (skip)
-pointers into one float32 row per node (``_pack_nodes``), so traversal is
-stackless. ``stack_bvhs`` concatenates k such tables.
+pointers, so traversal is stackless. ``stack_bvhs`` concatenates k such
+BVHs (``_stacked_arrays``) into the device layout that kernel K2 reads
+(``_compact_layout``: 32 B a node, 48 B a real triangle). ``_pack_nodes``
+makes the JAX package's row table of the same arrays, which the parity
+tests hold against JAX's.
 
 ``trace_all`` traces every ray against every shell. On a CUDA tensor it
 launches kernel K2 (``csrc/bvh_trace.cu``); on a CPU tensor it runs the
-plain version ``trace_all_reference``, a lockstep loop of the same steps.
+plain version ``trace_all_reference``, a lockstep loop of the same steps
+over the same layout.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from volsurfs_tpu_torch import _build
 
-LEAF_TRIS = 4  # triangles per leaf (padded)
+LEAF_TRIS = 4  # triangles per leaf (padded); K2 tests at most this many
 
 # launch counts: the CUDA kernel's and the plain version's
 launches = {"bvh_trace": 0, "bvh_trace_reference": 0}
@@ -33,7 +37,7 @@ class BVH:
 
     node_lo/node_hi [N, 3] boxes; node_skip [N] miss pointer; node_first [N]
     first leaf slot or -1 for inner nodes; tri_v0/e1/e2 [S, 3] padded leaf
-    triangles; tri_id [S] face index (-1 pad); packed [N, W] one row a node.
+    triangles; tri_id [S] face index (-1 pad).
     """
 
     node_lo: np.ndarray
@@ -44,7 +48,6 @@ class BVH:
     tri_e1: np.ndarray
     tri_e2: np.ndarray
     tri_id: np.ndarray
-    packed: np.ndarray
 
 
 def _pack_nodes(node_lo, node_hi, node_skip, node_first,
@@ -84,6 +87,45 @@ def _pack_nodes(node_lo, node_hi, node_skip, node_first,
             np.asarray(tri_id, np.int32)[slots].view(np.float32)
         )
     return out
+
+
+def _compact_layout(node_lo, node_hi, node_skip, node_first,
+                    tri_v0, tri_e1, tri_e2, tri_id, leaf_size=LEAF_TRIS):
+    """K2's device layout of a flattened BVH: (nodes [N, 8], tris [T, 12]).
+
+    A node row is two 16-byte halves (skip, first and count as int32 bits):
+      inner: [lo.x, lo.y, lo.z, skip | hi.x, hi.y, hi.z, 0.0]
+      leaf:  [first, count, 0, skip  | 0, 0, 0, 1.0]
+    A leaf's box is never tested, as in JAX, so it holds its triangles'
+    first row and count instead. A triangle row is three 16-byte thirds,
+    [v0.xyz, id | e1.xyz, 0 | e2.xyz, 0]; ``tris`` holds only the real
+    (id >= 0) leaf slots, in slot order, so a leaf's triangles are rows
+    first .. first+count-1. A -1 pad never hits, so dropping the pads
+    changes no first minimum.
+    """
+    node_first = np.asarray(node_first, np.int32)
+    tri_id = np.asarray(tri_id, np.int32)
+    is_leaf = node_first >= 0
+    real = tri_id >= 0
+    row_of_slot = (np.cumsum(real) - real).astype(np.int32)  # rows before each slot
+    nodes = np.zeros((node_first.shape[0], 8), np.float32)
+    nodes[:, 0:3] = node_lo
+    nodes[:, 3] = np.asarray(node_skip, np.int32).view(np.float32)
+    nodes[:, 4:7] = node_hi
+    nodes[:, 7] = is_leaf
+    leaf_ids = np.nonzero(is_leaf)[0]
+    if leaf_ids.size:
+        slots = node_first[leaf_ids][:, None] + np.arange(leaf_size)[None, :]
+        nodes[leaf_ids, 0:3] = 0.0
+        nodes[leaf_ids, 4:7] = 0.0
+        nodes[leaf_ids, 0] = row_of_slot[slots[:, 0]].view(np.float32)
+        nodes[leaf_ids, 1] = real[slots].sum(axis=1).astype(np.int32).view(np.float32)
+    tris = np.zeros((int(real.sum()), 12), np.float32)
+    tris[:, 0:3] = np.asarray(tri_v0, np.float32)[real]
+    tris[:, 3] = tri_id[real].view(np.float32)
+    tris[:, 4:7] = np.asarray(tri_e1, np.float32)[real]
+    tris[:, 8:11] = np.asarray(tri_e2, np.float32)[real]
+    return nodes, tris
 
 
 def build_bvh(verts: np.ndarray, faces: np.ndarray, leaf_size: int = LEAF_TRIS) -> BVH:
@@ -127,10 +169,6 @@ def build_bvh(verts: np.ndarray, faces: np.ndarray, leaf_size: int = LEAF_TRIS) 
         node_lo=node_lo, node_hi=node_hi, node_skip=node_skip,
         node_first=node_first, tri_v0=t_v0, tri_e1=t_e1, tri_e2=t_e2,
         tri_id=t_id,
-        packed=_pack_nodes(
-            node_lo, node_hi, node_skip, node_first, t_v0, t_e1, t_e2, t_id,
-            leaf_size,
-        ),
     )
 
 
@@ -167,13 +205,15 @@ class StepCapGuard:
 
 @dataclasses.dataclass
 class StackedBVH:
-    """k packed BVHs concatenated into one node table (device tensors).
+    """k flattened BVHs concatenated, with node and slot offsets applied.
 
-    packed [Nt, W]; node_begin [k] root row of mesh m; node_end [k] one past
-    its last row. Skip pointers and leaf slots carry the offsets. step_cap
-    is K2's overflow guard, made at the first trace on a CUDA device."""
+    nodes [Nt, 8] and tris [T, 12] float32 are K2's device layout
+    (``_compact_layout``). node_begin [k] is the root row of mesh m and
+    node_end [k] one past its last row. step_cap is K2's overflow guard,
+    made at the first trace on a CUDA device."""
 
-    packed: torch.Tensor
+    nodes: torch.Tensor
+    tris: torch.Tensor
     node_begin: torch.Tensor
     node_end: torch.Tensor
     leaf_size: int = LEAF_TRIS
@@ -186,15 +226,17 @@ class StackedBVH:
             self.step_cap.check(wait=True)
 
 
-def stack_bvhs(bvhs, device="cuda") -> StackedBVH:
-    """Concatenate flattened BVHs with node/slot offsets applied."""
+def _stacked_arrays(bvhs):
+    """The BVHs' arrays concatenated, skip and first offset to the stacked
+    rows: (node_lo, node_hi, node_skip, node_first, tri_v0, tri_e1, tri_e2,
+    tri_id), the arguments of ``_compact_layout`` and ``_pack_nodes``."""
     node_offsets = np.cumsum([0] + [int(b.node_first.shape[0]) for b in bvhs])
     slot_offsets = np.cumsum([0] + [int(b.tri_v0.shape[0]) for b in bvhs])
     skips, firsts = [], []
     for m, b in enumerate(bvhs):
         skips.append(b.node_skip + node_offsets[m])
         firsts.append(np.where(b.node_first >= 0, b.node_first + slot_offsets[m], -1))
-    packed = _pack_nodes(
+    return (
         np.concatenate([b.node_lo for b in bvhs]),
         np.concatenate([b.node_hi for b in bvhs]),
         np.concatenate(skips).astype(np.int32),
@@ -204,8 +246,15 @@ def stack_bvhs(bvhs, device="cuda") -> StackedBVH:
         np.concatenate([b.tri_e2 for b in bvhs]),
         np.concatenate([b.tri_id for b in bvhs]),
     )
+
+
+def stack_bvhs(bvhs, device="cuda") -> StackedBVH:
+    """Concatenate flattened BVHs with node/slot offsets applied."""
+    node_offsets = np.cumsum([0] + [int(b.node_first.shape[0]) for b in bvhs])
+    nodes, tris = _compact_layout(*_stacked_arrays(bvhs))
     return StackedBVH(
-        packed=torch.from_numpy(packed).to(device),
+        nodes=torch.from_numpy(nodes).to(device),
+        tris=torch.from_numpy(tris).to(device),
         node_begin=torch.from_numpy(node_offsets[:-1].astype(np.int32)).to(device),
         node_end=torch.from_numpy(node_offsets[1:].astype(np.int32)).to(device),
     )
@@ -234,20 +283,25 @@ def trace_all(stacked: StackedBVH, rays_o, rays_d):
     """
     if not rays_o.is_cuda:
         return trace_all_reference(stacked, rays_o, rays_d)
-    packed, begin, end = stacked.packed, stacked.node_begin, stacked.node_end
+    nodes, tris = stacked.nodes, stacked.tris
+    begin, end = stacked.node_begin, stacked.node_end
     for name, x, dtype in (
-        ("packed", packed, torch.float32), ("node_begin", begin, torch.int32),
-        ("node_end", end, torch.int32), ("rays_o", rays_o, torch.float32),
-        ("rays_d", rays_d, torch.float32),
+        ("nodes", nodes, torch.float32), ("tris", tris, torch.float32),
+        ("node_begin", begin, torch.int32), ("node_end", end, torch.int32),
+        ("rays_o", rays_o, torch.float32), ("rays_d", rays_d, torch.float32),
     ):
         if x.device != rays_o.device or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(
                 f"trace_all: {name} must be a contiguous {dtype} tensor on "
                 f"{rays_o.device}, got {x.dtype} on {x.device}"
             )
-    if (packed.ndim != 2 or packed.shape[1] < 8 + 10 * stacked.leaf_size
+    if (nodes.ndim != 2 or nodes.shape[1] != 8 or tris.ndim != 2 or tris.shape[1] != 12
             or rays_o.ndim != 2 or rays_o.shape[1] != 3 or rays_d.shape != rays_o.shape):
-        raise ValueError(f"trace_all: bad shapes {packed.shape}, {rays_o.shape}, {rays_d.shape}")
+        raise ValueError(
+            f"trace_all: bad shapes {nodes.shape}, {tris.shape}, {rays_o.shape}, {rays_d.shape}"
+        )
+    if stacked.leaf_size > LEAF_TRIS:  # the kernel holds at most LEAF_TRIS a leaf
+        raise ValueError(f"trace_all: leaves of {stacked.leaf_size} > {LEAF_TRIS} triangles")
     k, R = begin.shape[0], rays_o.shape[0]
     dev = rays_o.device
     if stacked.step_cap is None:
@@ -258,10 +312,10 @@ def trace_all(stacked: StackedBVH, rays_o, rays_d):
     u_best = torch.empty(k * R, dtype=torch.float32, device=dev)
     v_best = torch.empty(k * R, dtype=torch.float32, device=dev)
     status = _build.kernels().vs_bvh_trace(
-        packed.data_ptr(), packed.shape[1], stacked.leaf_size,
-        begin.data_ptr(), end.data_ptr(), k, rays_o.data_ptr(),
-        rays_d.data_ptr(), R, t_best.data_ptr(), tri_best.data_ptr(),
+        nodes.data_ptr(), tris.data_ptr(), begin.data_ptr(), end.data_ptr(), k,
+        rays_o.data_ptr(), rays_d.data_ptr(), R, t_best.data_ptr(), tri_best.data_ptr(),
         u_best.data_ptr(), v_best.data_ptr(), stacked.step_cap.count.data_ptr(),
+        torch.cuda.get_device_properties(dev).multi_processor_count,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "bvh_trace")
@@ -307,15 +361,20 @@ def _moller_trumbore(tris, rays_o, rays_d, eps=1e-9):
 def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, return_work=False):
     """Plain version of ``trace_all``: every (mesh, ray) cursor advances one
     node per iteration, in lockstep, until all have left their mesh's rows.
+    It reads K2's layout (``stacked.nodes``, ``stacked.tris``) and makes
+    the same tests in the same order as the kernel.
 
     With return_work, returns (hits, work): work counts the box tests of
-    inner nodes and the triangle tests of real (non-pad) leaf slots that
-    the cursors made, the work a trace of these rays needs."""
+    inner nodes and the triangle tests of leaf triangles (the layout holds
+    no pads) that the cursors made, the work a trace of these rays needs;
+    the distinct nodes and triangles they read (``nodes_read``,
+    ``triangles_read``), the table bytes it needs; and the node visits of
+    all cursors and of the longest one (the chain of dependent node loads
+    that one kernel thread makes)."""
     launches["bvh_trace_reference"] += 1
-    packed = stacked.packed
-    L = stacked.leaf_size
+    nodes, tris = stacked.nodes, stacked.tris
     k, R = stacked.node_begin.shape[0], rays_o.shape[0]
-    n_nodes = packed.shape[0]
+    n_nodes, n_tris = nodes.shape[0], tris.shape[0]
     o = rays_o.repeat(k, 1)
     d = rays_d.repeat(k, 1)
     inv_d = 1.0 / torch.where(torch.abs(d) < 1e-12, 1e-12, d)
@@ -325,29 +384,37 @@ def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, return_work=False):
     tri_best = torch.full((k * R,), -1, dtype=torch.long, device=o.device)
     u_best = torch.zeros(k * R, device=o.device)
     v_best = torch.zeros(k * R, device=o.device)
+    slot = torch.arange(stacked.leaf_size, device=o.device)
+    mt_cols = torch.tensor([0, 1, 2, 4, 5, 6, 8, 9, 10], device=o.device)  # v0, e1, e2
     cap = int((stacked.node_end - stacked.node_begin).max()) + 1
     box_tests = torch.zeros((), dtype=torch.long, device=o.device)
     triangle_tests = torch.zeros((), dtype=torch.long, device=o.device)
+    visits = torch.zeros(k * R, dtype=torch.long, device=o.device)
+    visited = torch.zeros(n_nodes, dtype=torch.bool, device=o.device)
     for _ in range(cap):
         active = node < end
         if not bool(active.any()):
             break
-        row = packed[torch.clamp(node, max=n_nodes - 1)]
-        is_leaf = row[:, 0] > 0.5
-        skip = row[:, 1].contiguous().view(torch.int32).long()
-        t0 = (row[:, 2:5] - o) * inv_d
-        t1 = (row[:, 5:8] - o) * inv_d
+        row = nodes[torch.clamp(node, max=n_nodes - 1)]
+        is_leaf = row[:, 7] > 0.5
+        bits = row[:, :4].contiguous().view(torch.int32).long()  # first, count, -, skip
+        t0 = (row[:, 0:3] - o) * inv_d
+        t1 = (row[:, 4:7] - o) * inv_d
         t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
         t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
         box_hit = (t_far >= t_near) & (t_far > 0.0) & (t_near < t_best)
 
-        tris = row[:, 8 : 8 + 9 * L].reshape(-1, L, 9)
-        tid = row[:, 8 + 9 * L : 8 + 10 * L].contiguous().view(torch.int32).long()
+        count = torch.where(is_leaf & active, bits[:, 1], 0)
+        real = slot[None, :] < count[:, None]  # [B, L]
+        tri = tris[torch.clamp(bits[:, 0:1] + slot[None, :], 0, max(n_tris - 1, 0))]
+        tid = tri[..., 3].contiguous().view(torch.int32).long()
         if return_work:
             box_tests += (active & ~is_leaf).sum()
-            triangle_tests += ((tid >= 0) & (is_leaf & active)[:, None]).sum()
-        t, u, v, hit = _moller_trumbore(tris, o, d)
-        hit = hit & (tid >= 0) & (is_leaf & active)[:, None] & (t < t_best[:, None])
+            triangle_tests += count.sum()
+            visits += active
+            visited[node[active]] = True
+        t, u, v, hit = _moller_trumbore(tri[..., mt_cols], o, d)
+        hit = hit & real & (t < t_best[:, None])
         t = torch.where(hit, t, float("inf"))
         t_leaf, j = torch.min(t, dim=-1)  # first minimum wins
         better = t_leaf < t_best
@@ -358,13 +425,18 @@ def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, return_work=False):
         v_best = torch.where(better, torch.gather(v, 1, j)[:, 0], v_best)
 
         descend = box_hit & ~is_leaf
-        node = torch.where(active, torch.where(descend, node + 1, skip), node)
+        node = torch.where(active, torch.where(descend, node + 1, bits[:, 3]), node)
     else:
         if bool((node < end).any()):
             raise RuntimeError("trace_all_reference: cursors hit the step cap")
     hits = _hits_dict(t_best, tri_best, u_best, v_best, rays_o, rays_d, k)
     if return_work:
-        return hits, {"box_tests": int(box_tests), "triangle_tests": int(triangle_tests)}
+        leaves_read = visited & (nodes[:, 7] > 0.5)  # a leaf's triangles are all tested
+        leaf_counts = nodes[:, 1].contiguous().view(torch.int32).long()
+        return hits, {"box_tests": int(box_tests), "triangle_tests": int(triangle_tests),
+                      "nodes_read": int(visited.sum()),
+                      "triangles_read": int(leaf_counts[leaves_read].sum()),
+                      "node_visits": int(visits.sum()), "max_node_visits": int(visits.max())}
     return hits
 
 

@@ -2,9 +2,9 @@
 
 Counterpart of volsurfs_tpu/ops/pallas/scatter_add.py (the JAX package's
 one Pallas kernel, ``scatter_add_levels``). On a CUDA tensor the wrappers
-launch kernel K1 (``csrc/scatter_add.cu``: one thread per value, f32
-atomicAdd into a zeroed output); on a CPU tensor they run the plain
-version. Sums are taken in another order than the plain version's, and
+launch kernel K1 (``csrc/scatter_add.cu``: the output zeroed on the
+stream, then one float2 atomicAdd per update for F=2, one f32 atomicAdd per
+value otherwise); on a CPU tensor they run the plain version. Sums are taken in another order than the plain version's, and
 with atomics in an order that changes from run to run, so the two agree to
 f32 rounding, not bit for bit.
 """
@@ -46,7 +46,7 @@ def scatter_add_rows(rows, upd, total_rows: int):
         )
     if rows.ndim != 1 or rows.shape[0] != upd.shape[0]:
         raise ValueError(f"scatter_add_rows: rows {tuple(rows.shape)} vs upd {tuple(upd.shape)}")
-    out = torch.zeros(total_rows, upd.shape[1], dtype=torch.float32, device=upd.device)
+    out = torch.empty(total_rows, upd.shape[1], dtype=torch.float32, device=upd.device)
     status = _build.kernels().vs_scatter_add_rows(
         rows.data_ptr(), upd.data_ptr(), out.data_ptr(), upd.shape[0],
         upd.shape[1], total_rows, torch.cuda.current_stream(upd.device).cuda_stream,
