@@ -22,6 +22,26 @@ on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/:
 6. a 256x256 test frame rendered in 16384-ray chunks, its PSNR and rate,
    and one more frame under the profiler;
 7. the launches of both kernels over phases 5-6 (each must be > 0, and the
+   plain versions must not have run there);
+8. kernel K4 (shade and composite of the baked shells) against its plain
+   version on the culled hits of one frame: a 256x256 test camera of the
+   committed baked scene (runs/pipeline_tpu_256/volsurfs/, sh_degree 2;
+   5 x 65,536 rays, the replay's shape), a 256x256 and an 800x800 orbit
+   camera of the full-width scene of phase 10 (5 x 640,000 rays, the
+   orbit's shape), with times and the bound; and K2 as in phase 4, with
+   the shells' back-face cull signs, at the orbit's frame shape;
+9. the baked renderer's quality replay: the committed scene's 4 test
+   cameras at 256x256 through BakedMeshRenderer.render_frame, whose mean
+   PSNR must exceed the committed baked_render_psnr less 0.3 dB, and one
+   camera through render() in 65,536-ray chunks, which must equal its
+   render_frame image;
+10. the full-width baked scene (bench.py's widths: sh_degree 3, bands of
+   [2048, 1024, 512, 256] texels, random texels from a seed, on the five
+   committed shells), written as PNGs into a temporary directory, loaded
+   through BakedMeshRenderer and drawn as 64 orbit frames at 800x800 with
+   render_frames_device: Mrays/s (best of 3, one sync a run) and one frame
+   under the profiler;
+11. the launches of K2 and K4 over phases 9-10 (each must be > 0, and the
    plain versions must not have run there).
 
 Each phase prints one JSON line. The line before the last is the kernel
@@ -37,6 +57,7 @@ faulthandler.dump_traceback_later(480, exit=True)
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -53,6 +74,15 @@ F32_FLOPS_PER_S = 67e12
 # two)
 BOX_TEST_FLOPS = 24
 TRIANGLE_TEST_FLOPS = 50
+
+# K4 against its plain version: the largest |difference| allowed in rgb and
+# bg_transmittance. The two sum the SH terms in other orders, so a float16
+# SH value may round one step apart; through the sigmoid and the float16
+# compositing over five shells that moves an output by a few float16 steps
+# of [0, 1] (4.9e-4 each).
+K4_ATOL = 2e-3
+ORBIT_FRAMES = 64  # bench.py's orbit
+ORBIT_RES = 800
 
 TRAIN_STEPS = 60
 WARMUP_STEPS = 10
@@ -94,11 +124,17 @@ def profiled(fn, reps):
 
 
 def reset_counts():
-    from volsurfs_tpu_torch.ops import bvh, scatter_add
+    from volsurfs_tpu_torch.ops import bvh, scatter_add, shade
 
-    for counts in (bvh.launches, scatter_add.launches):
+    for counts in (bvh.launches, scatter_add.launches, shade.launches):
         for key in counts:
             counts[key] = 0
+
+
+def read_counts():
+    from volsurfs_tpu_torch.ops import bvh, scatter_add, shade
+
+    return {**scatter_add.launches, **bvh.launches, **shade.launches}
 
 
 def phase_device():
@@ -177,57 +213,66 @@ def phase_scatter_add(device):
     return results["hashgrid_backward"]
 
 
+def check_trace(stacked, meshes, shape, rays_o, rays_d, build_s=None, cull=None):
+    """K2 against its plain version on every shell x these rays (culled
+    with the signs cull, if given): every output bit for bit, no cursor
+    over its step cap; times and the bound. meshes: the shells' (verts,
+    faces)."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import bvh as B
+
+    table_bytes = sum(x.numel() * x.element_size() for x in (stacked.nodes, stacked.tris))
+    node_bytes, tri_bytes = stacked.nodes[0].nbytes, stacked.tris[0].nbytes
+    out = B.trace_all(stacked, rays_o, rays_d, cull)
+    ref, work = B.trace_all_reference(stacked, rays_o, rays_d, cull, return_work=True)
+    stacked.check_step_cap()
+    unequal = [key for key in ("is_hit", "depth", "positions", "barycentric", "triangles_id")
+               if not torch.equal(out[key], ref[key])]
+    depth_err = float((out["depth"] - ref["depth"]).abs().max())
+    bary_err = float((out["barycentric"] - ref["barycentric"]).abs().max())
+    fn = lambda: B.trace_all(stacked, rays_o, rays_d, cull)  # noqa: E731
+    ms, kernel_device_ms = kb.time_ms(fn), kb.device_ms(fn)
+    plain_ms = kb.time_ms(lambda: B.trace_all_reference(stacked, rays_o, rays_d, cull),
+                          reps=3, warmup=1)
+    stacked.check_step_cap()
+    k, R = stacked.node_begin.shape[0], rays_o.shape[0]
+    # the nodes and triangles these rays read, rays in, (t, id, u, v) out
+    nbytes = (work["nodes_read"] * node_bytes + work["triangles_read"] * tri_bytes
+              + 24 * R + 16 * k * R)
+    flops = (work["box_tests"] * BOX_TEST_FLOPS
+             + work["triangle_tests"] * TRIANGLE_TEST_FLOPS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    result = dict(
+        shape=shape, culled=cull is not None, shells=k, rays=R, nodes=int(stacked.nodes.shape[0]),
+        triangles=int(stacked.tris.shape[0]), table_bytes=table_bytes,
+        bvh_build_s=build_s, hit_frac=float(out["is_hit"].float().mean()),
+        unequal_outputs=unequal, depth_max_abs_err=depth_err, bary_max_abs_err=bary_err,
+        tri_differ=int((out["triangles_id"] != ref["triangles_id"]).sum()),
+        tri_mismatch_beyond_ties=B.face_id_mismatches(meshes, out, ref, rays_o, rays_d),
+        step_cap_overflows=int(stacked.step_cap.count.item()), **work,
+        ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        max_abs_err=max(depth_err, bary_err),
+    )
+    emit("k2_bvh_trace", **result)
+    if unequal or result["step_cap_overflows"]:
+        raise AssertionError(f"K2 disagrees with its plain version: {result}")
+    return result
+
+
 def phase_trace(device, shells, reel):
-    """K2 against its plain version on every shell x the rays of each of
-    the three shapes (the train step's drawn from reel): every output bit
-    for bit, no cursor over its step cap. Returns each shape's result."""
+    """K2 against its plain version at each of the three shapes (the train
+    step's rays drawn from reel). Returns each shape's result."""
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import bvh as B
 
     t = time.perf_counter()
     stacked = B.stack_bvhs([B.build_bvh(v, f) for v, f, _ in shells], device)
     build_s = time.perf_counter() - t
-    table_bytes = sum(x.numel() * x.element_size() for x in (stacked.nodes, stacked.tris))
-    node_bytes, tri_bytes = stacked.nodes[0].nbytes, stacked.tris[0].nbytes
     meshes = [(v, f) for v, f, _ in shells]
-    results = {}
-    for shape, (rays_o, rays_d) in kb.k2_rays(device, reel).items():
-        out = B.trace_all(stacked, rays_o, rays_d)
-        ref, work = B.trace_all_reference(stacked, rays_o, rays_d, return_work=True)
-        stacked.check_step_cap()
-        unequal = [key for key in ("is_hit", "depth", "positions", "barycentric", "triangles_id")
-                   if not torch.equal(out[key], ref[key])]
-        depth_err = float((out["depth"] - ref["depth"]).abs().max())
-        bary_err = float((out["barycentric"] - ref["barycentric"]).abs().max())
-        fn = lambda: B.trace_all(stacked, rays_o, rays_d)  # noqa: E731
-        ms, kernel_device_ms = kb.time_ms(fn), kb.device_ms(fn)
-        plain_ms = kb.time_ms(lambda: B.trace_all_reference(stacked, rays_o, rays_d),
-                              reps=3, warmup=1)
-        stacked.check_step_cap()
-        k, R = stacked.node_begin.shape[0], rays_o.shape[0]
-        # the nodes and triangles these rays read, rays in, (t, id, u, v) out
-        nbytes = (work["nodes_read"] * node_bytes + work["triangles_read"] * tri_bytes
-                  + 24 * R + 16 * k * R)
-        flops = (work["box_tests"] * BOX_TEST_FLOPS
-                 + work["triangle_tests"] * TRIANGLE_TEST_FLOPS)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        results[shape] = dict(
-            shape=shape, shells=k, rays=R, nodes=int(stacked.nodes.shape[0]),
-            triangles=int(stacked.tris.shape[0]), table_bytes=table_bytes,
-            bvh_build_s=build_s, hit_frac=float(out["is_hit"].float().mean()),
-            unequal_outputs=unequal, depth_max_abs_err=depth_err, bary_max_abs_err=bary_err,
-            tri_differ=int((out["triangles_id"] != ref["triangles_id"]).sum()),
-            tri_mismatch_beyond_ties=B.face_id_mismatches(meshes, out, ref, rays_o, rays_d),
-            step_cap_overflows=int(stacked.step_cap.count.item()), **work,
-            ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            max_abs_err=max(depth_err, bary_err),
-        )
-        emit("k2_bvh_trace", **results[shape])
-        if unequal or results[shape]["step_cap_overflows"]:
-            raise AssertionError(f"K2 disagrees with its plain version: {results[shape]}")
-    return results
+    return {shape: check_trace(stacked, meshes, shape, rays_o, rays_d, build_s)
+            for shape, (rays_o, rays_d) in kb.k2_rays(device, reel).items()}
 
 
 def smoke_hyper_params():
@@ -319,6 +364,171 @@ def phase_render(device, method, rays_o, rays_d, gt, chunk):
     return psnr
 
 
+def orbit_cameras(res, n=ORBIT_FRAMES):
+    """bench.py's orbit: n cameras at radius 2, elevation 0.3."""
+    from volsurfs_tpu_torch.renderers.viewer import OrbitCamera
+
+    cams = []
+    for i in range(n):
+        oc = OrbitCamera(res, res, radius=2.0)
+        oc.azimuth = 2.0 * 3.14159265 * i / n
+        oc.elevation = 0.3
+        cams.append(oc.camera())
+    return cams
+
+
+def phase_shade(scene_name, renderer, camera):
+    """K4 against its plain version on K2's hits of one camera's rays,
+    culled as the frame entry points cull them, with times and the
+    bound."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import bvh as B
+    from volsurfs_tpu_torch.ops import shade as S
+    from volsurfs_tpu_torch.renderers.mesh_renderer import camera_rays
+
+    intr, poses = renderer.camera_tensors([camera])
+    rays_o, rays_d = camera_rays(intr[0], poses[0], camera.width, camera.height)
+    hits = B.trace_all(renderer.stacked_bvh, rays_o, rays_d, renderer.frame_cull([camera]))
+    args = renderer.shade_inputs(hits, rays_d)
+    out = S.shade_composite(*args)
+    ref, work = S._shade_composite_reference(*args, return_work=True)
+    renderer.stacked_bvh.check_step_cap()
+    diffs = {key: (out[key] - ref[key]).abs() for key in ("rgb", "bg_transmittance")}
+    max_abs = max(float(d.max()) for d in diffs.values())
+    differ = {key: int((d > 0).sum()) for key, d in diffs.items()}
+    finite = all(bool(torch.isfinite(out[key]).all()) for key in out)
+    fn = lambda: S.shade_composite(*args)  # noqa: E731
+    ms, device_ms = kb.time_ms(fn), kb.device_ms(fn)
+    plain_ms = kb.time_ms(lambda: S._shade_composite_reference(*args), reps=5, warmup=1)
+    k, N = hits["is_hit"].shape
+    # inputs read once: is_hit (1 B a shell and ray), triangles_id and
+    # barycentric where is_hit is set (8 + 8 B a hit), directions, the UVs
+    # of the faces hit, the distinct texel bytes the hits need; rgb and T out
+    nbytes = (k * N + 16 * work["hits"] + 12 * N + 24 * work["faces_hit"]
+              + work["texel_bytes"] + 16 * N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, work["flops"] / F32_FLOPS_PER_S
+    result = dict(
+        scene=scene_name, shape=f"{scene_name}_{k}x{N}", shells=k, rays=N,
+        sh_degree=renderer.sh_degree,
+        texture_bytes=int(renderer.band_textures.texels.numel()), **work,
+        hit_frac=work["hits"] / (k * N), max_abs_err=max_abs, entries_differ=differ,
+        tolerance=K4_ATOL, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+    emit("k4_shade", **result)
+    if not finite or max_abs > K4_ATOL:
+        raise AssertionError(f"K4 disagrees with its plain version: {result}")
+    return result
+
+
+def phase_quality(renderer):
+    """The committed scene's 4 test cameras at 256x256 through render_frame
+    against the procedural ground truth; render() of camera 0 in 65,536-ray
+    chunks must equal its render_frame image."""
+    from volsurfs_tpu_torch.datasets.baked_scene import committed_psnr_bar
+    from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
+    from volsurfs_tpu_torch.utils.evaluation import psnr
+
+    res = 256
+    test = MVDataset("synthetic", "sphere", "", splits=("test",),
+                     config={"width": res, "height": res, "nr_test_cameras": 4})["test"]
+    t = time.perf_counter()
+    imgs = [renderer.render_frame(cam) for cam in test.cameras]
+    secs = time.perf_counter() - t
+    psnrs = [psnr(np.asarray(test.rgbs[i]), img) for i, img in enumerate(imgs)]
+    chunked = renderer.render(test.cameras[0], chunk_size=65536)
+    bar = committed_psnr_bar()
+    result = dict(cameras=len(imgs), res=res, psnrs=psnrs, mean_psnr=float(np.mean(psnrs)),
+                  bar=bar - 0.3, seconds=secs,
+                  render_equals_render_frame=bool(np.array_equal(chunked, imgs[0])),
+                  finite=bool(all(np.isfinite(img).all() for img in imgs)))
+    emit("baked_quality", **result)
+    if not (result["finite"] and result["mean_psnr"] > bar - 0.3
+            and result["render_equals_render_frame"]):
+        raise AssertionError(f"baked replay failed: {result}")
+    return result
+
+
+def phase_orbit(renderer, smi, scene_info):
+    """64 orbit frames at 800x800 through render_frames_device: best of 3
+    runs, each queued whole and synced once; then one frame profiled."""
+    cams = orbit_cameras(ORBIT_RES)
+    imgs, overflow = renderer.render_frames_device(cams)  # warm-up
+    torch.cuda.synchronize()
+    if imgs.shape != (len(cams), ORBIT_RES, ORBIT_RES, 3) or not bool(torch.isfinite(imgs).all()):
+        raise AssertionError(f"orbit: bad frames {tuple(imgs.shape)}")
+    if int(overflow.abs().sum()):
+        raise AssertionError(f"orbit: overflow {overflow.tolist()}")
+    runs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        imgs, _ = renderer.render_frames_device(cams)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+    renderer.stacked_bvh.check_step_cap()
+    rays = ORBIT_RES * ORBIT_RES * len(cams)
+    hit = float((imgs[0] != 1.0).any(dim=-1).float().mean())
+    result = dict(frames=len(cams), res=ORBIT_RES, rays=rays, run_s=runs,
+                  mrays_per_s=rays / min(runs) / 1e6, frame_ms=min(runs) / len(cams) * 1e3,
+                  non_background_frac=hit, card=smi, **scene_info)
+    emit("baked_orbit", **result)
+    emit("baked_orbit_profile", frames=1, card=smi,
+         **profiled(lambda: renderer.render_frames_device(cams[:1]), 1))
+    if hit <= 0.0:
+        raise AssertionError("orbit: no pixel of frame 0 hit a shell")
+    return result
+
+
+def phase_baked(device, smi):
+    """Phases 8-11: returns (K4's result at the full-width scene, the
+    launches over phases 9-10)."""
+    from volsurfs_tpu_torch.datasets import baked_scene
+    from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
+    from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer, camera_rays
+
+    t = time.perf_counter()
+    committed = BakedMeshRenderer(baked_scene.COMMITTED_SCENE, device=device)
+    committed.stacked_bvh  # the lazy BVH build, counted in the load
+    emit("baked_load", scene="committed", load_s=time.perf_counter() - t,
+         texture_bytes=int(committed.band_textures.texels.numel()))
+    with tempfile.TemporaryDirectory(prefix="vs_full_width_scene_") as scene_dir:
+        t = time.perf_counter()
+        baked_scene.write_full_width_scene(scene_dir)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        full = BakedMeshRenderer(scene_dir, device=device)
+        full.stacked_bvh  # the lazy BVH build, counted in the load
+        load_s = time.perf_counter() - t
+    scene_info = dict(scene="full_width", sh_degree=full.sh_degree,
+                      textures_res=list(baked_scene.FULL_WIDTH_RES),
+                      texture_bytes=int(full.band_textures.texels.numel()),
+                      geometry="the 5 committed shells (not bench.py's bumpy spheres)",
+                      write_s=write_s, load_s=load_s)
+    emit("baked_load", **scene_info)
+
+    test_cam = MVDataset("synthetic", "sphere", "", splits=("test",),
+                         config={"width": 256, "height": 256, "nr_test_cameras": 4}
+                         )["test"].cameras[0]
+    orbit_cam = orbit_cameras(ORBIT_RES, 1)[0]
+    phase_shade("committed", committed, test_cam)  # the replay's shape
+    phase_shade("full_width", full, orbit_cameras(256, 1)[0])  # 5 x 65,536
+    k4 = phase_shade("full_width", full, orbit_cam)  # the orbit's shape
+    # K2 at the orbit's frame shape (5 x 640,000 rays), culled as the orbit is
+    intr, poses = full.camera_tensors([orbit_cam])
+    check_trace(full.stacked_bvh, [(v, f) for v, f, _ in full.mesh_arrays],
+                f"orbit_frame_5x{ORBIT_RES ** 2}",
+                *camera_rays(intr[0], poses[0], orbit_cam.width, orbit_cam.height),
+                cull=full.frame_cull([orbit_cam]))
+
+    reset_counts()  # the baked render path: quality replay, then the orbit
+    phase_quality(committed)
+    phase_orbit(full, smi, scene_info)
+    counts = read_counts()
+    emit("baked_launches", **counts)
+    return k4, counts
+
+
 def main():
     name, smi = phase_device()
     device = torch.device("cuda")
@@ -327,8 +537,6 @@ def main():
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.datasets import sphere_scene
     from volsurfs_tpu_torch.datasets.tensor_reel import make_tensor_reel
-    from volsurfs_tpu_torch.ops import bvh, scatter_add
-
     k1 = phase_scatter_add(device)
     shells = sphere_scene.load_shells()
     reel = make_tensor_reel(*sphere_scene.train_split(), device=device)
@@ -342,7 +550,12 @@ def main():
     method.stacked_bvh.check_step_cap()
     phase_render(device, method, rays_o, rays_d, gt, kb.CHUNK)
     method.stacked_bvh.check_step_cap()
-    counts = {**scatter_add.launches, **bvh.launches}
+    counts = read_counts()
+    emit("train_render_launches", **counts)
+    del method
+    torch.cuda.empty_cache()
+
+    k4, baked = phase_baked(device, smi)
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -356,10 +569,20 @@ def main():
         dict(name="bvh_trace", route="cuda",
              source="volsurfs_tpu_torch/csrc/bvh_trace.cu",
              replaces="volsurfs_tpu/ops/bvh.py:490",
-             launches=counts["bvh_trace"], plain_launches=counts["bvh_trace_reference"],
+             launches=counts["bvh_trace"] + baked["bvh_trace"],
+             launches_by_path={"train_render": counts["bvh_trace"],
+                               "baked_render": baked["bvh_trace"]},
+             plain_launches=counts["bvh_trace_reference"] + baked["bvh_trace_reference"],
              shape=k2["shape"],
              registers=resources.get("bvh_trace_kernel", {}).get("registers"),
              **{k: k2[k] for k in keys}),
+        dict(name="shade_composite", route="cuda",
+             source="volsurfs_tpu_torch/csrc/shade.cu",
+             replaces="volsurfs_tpu/renderers/mesh_renderer.py:271",
+             launches=baked["shade"], plain_launches=baked["shade_reference"],
+             shape=k4["shape"],
+             registers=resources.get("shade_composite_deg3_kernel", {}).get("registers"),
+             **{k: k4[k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:

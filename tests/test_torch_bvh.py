@@ -171,6 +171,50 @@ def test_trace_all_reference_partial_leaves_and_degenerate_faces_match_jax(aim):
         assert bool((ids[0] == 0).all())  # neither degenerate face hits
 
 
+def _closed_cube():
+    """A closed cube of side 1 centred at the origin, 12 triangles wound
+    with outward normals."""
+    v = np.asarray([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)],
+                   np.float32)
+    faces = []
+    for axis in range(3):
+        for side in (0, 1):
+            quad = [i for i in range(8) if (i >> (2 - axis)) & 1 == side]  # a, b, c, d
+            for tri in ((quad[0], quad[1], quad[3]), (quad[0], quad[3], quad[2])):
+                a, b, c = v[list(tri)]
+                outward = np.dot(np.cross(b - a, c - a), a + b + c) > 0
+                faces.append(tri if outward else tri[::-1])
+    return v, np.asarray(faces, np.int32)
+
+
+def test_trace_culls_back_faces(two_meshes):
+    """Back-face culling of the plain trace. Cull signs: +1 for the cube
+    wound outward, -1 wound inward, and JAX's on the committed shells. Rays
+    from outside hit the closed cube exactly as without culling; rays from
+    its centre meet only back faces, so they all miss under sign +1 and hit
+    as without culling under sign -1; a sign of 0 culls nothing."""
+    from volsurfs_tpu.renderers import raster
+
+    v, f = _closed_cube()
+    assert TB.mesh_orientation(v, f) == 1 and TB.mesh_orientation(v, f[:, ::-1]) == -1
+    for v_, f_, _ in two_meshes:
+        assert TB.mesh_orientation(v_, f_) == raster.mesh_orientation(v_, f_)
+    stacked = TB.stack_bvhs([TB.build_bvh(v, f)], "cpu")
+    rng = np.random.default_rng(11)
+    rays_o, rays_d = random_rays(rng, 512)
+    o, d = torch.from_numpy(rays_o), torch.from_numpy(rays_d)
+    sign = {s: torch.tensor([s], dtype=torch.int32) for s in (-1, 0, 1)}
+    plain = TB.trace_all(stacked, o, d)
+    assert 0.2 < float(plain["is_hit"].float().mean()) < 1.0
+    for cull in (sign[0], sign[1]):
+        assert_hits_match(plain, TB.trace_all(stacked, o, d, cull))
+    centre = torch.zeros_like(o)
+    plain = TB.trace_all(stacked, centre, d)
+    assert bool(plain["is_hit"].all())
+    assert not bool(TB.trace_all(stacked, centre, d, sign[1])["is_hit"].any())
+    assert_hits_match(plain, TB.trace_all(stacked, centre, d, sign[-1]))
+
+
 def test_face_id_rule_excuses_only_ties(two_meshes):
     """The tie rule of the trace checks: a face id moved to a neighbour
     slot is counted, the trace's own ids are not, and a second face at the

@@ -11,8 +11,14 @@ import pytest
 import torch
 
 from volsurfs_tpu_torch.baking.mesh_io import load_obj
+from volsurfs_tpu_torch.datasets import baked_scene
+from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
 from volsurfs_tpu_torch.ops import bvh as TB
 from volsurfs_tpu_torch.ops import scatter_add as S
+from volsurfs_tpu_torch.ops import shade as SH
+from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer, camera_rays
+
+from _baked_uvs import edge_uvs
 
 torch.set_num_threads(2)
 
@@ -62,6 +68,21 @@ def test_scatter_add_kernel_widths_drop_rows_out_of_range(cuda, nr_feat):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6 * (M / nr_rows + 1))
 
 
+def test_scatter_add_kernel_drops_out_of_range_like_plain(cuda):
+    """The cases of the CPU tests in test_torch_scatter_add.py on the card:
+    rows [0, 5, -1, 9] into 8 rows, and a level-0 index equal to nr_rows,
+    give the plain version's result exactly (one addition per row)."""
+    rows = torch.tensor([0, 5, -1, 9], dtype=torch.int32)
+    upd = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0], [7.0, 8.0]])
+    out = S.scatter_add_rows(rows.to(cuda), upd.to(cuda), 8)
+    assert torch.equal(out.cpu(), S.scatter_add_rows_reference(rows, upd, 8))
+    idx = torch.tensor([[8, 2, -1], [1, 3, 0]], dtype=torch.int32)
+    lvl = torch.arange(12, dtype=torch.float32).reshape(2, 3, 2) + 1.0
+    out = S.scatter_add_levels(idx.to(cuda), lvl.to(cuda), 8)
+    assert torch.equal(out.cpu(), S.scatter_add_levels(idx, lvl, 8))
+    assert float(out[1].sum()) == float(lvl[1].sum())
+
+
 def test_scatter_add_rejects_wrong_dtype(cuda):
     with pytest.raises(ValueError):
         S.scatter_add_rows(torch.zeros(4, dtype=torch.int64, device=cuda),
@@ -88,3 +109,104 @@ def test_bvh_trace_kernel_matches_plain(cuda, nr_rays):
     for key in ("is_hit", "depth", "positions", "barycentric", "triangles_id"):
         assert torch.equal(out[key], ref[key]), key
     assert 0.2 < float(out["is_hit"].float().mean()) < 0.95
+
+
+def test_bvh_trace_kernel_culled_matches_plain(cuda):
+    """K2 with back-face culling equals its plain version bit for bit: the
+    committed shells' own signs on four of them and 0 (no culling) on one,
+    from a camera outside them, and sign -1 (back faces only) from the same
+    camera."""
+    r = BakedMeshRenderer(baked_scene.COMMITTED_SCENE, device=cuda)
+    cam = MVDataset("synthetic", "sphere", "", splits=("test",),
+                    config={"width": 128, "height": 128})["test"].cameras[0]
+    assert r.cameras_outside([cam])
+    intr, poses = r.camera_tensors([cam])
+    rays_o, rays_d = camera_rays(intr[0], poses[0], 128, 128)
+    own = r.cull_signs.clone()
+    own[2] = 0
+    for cull in (own, -r.cull_signs):
+        out = TB.trace_all(r.stacked_bvh, rays_o, rays_d, cull)
+        ref = TB.trace_all_reference(r.stacked_bvh, rays_o, rays_d, cull)
+        for key in ("is_hit", "depth", "positions", "barycentric", "triangles_id"):
+            assert torch.equal(out[key], ref[key]), key
+        assert 0.05 < float(out["is_hit"].float().mean()) < 0.95
+    r.stacked_bvh.check_step_cap()
+
+
+# K4 against its plain version: the two sum the SH terms in other orders, so
+# a float16 SH value may round one step apart, which moves an output by a few
+# float16 steps of [0, 1] (4.9e-4 each); almost every entry is equal
+K4_ATOL = 2e-3
+K4_MAX_DIFFER = 1e-3  # share of entries that may differ at all
+
+
+def _assert_shade_close(out, ref):
+    for key in ("rgb", "bg_transmittance"):
+        assert out[key].shape == ref[key].shape, key
+        diff = (out[key] - ref[key]).abs()
+        assert bool(torch.isfinite(out[key]).all()), key
+        assert float(diff.max()) <= K4_ATOL, (key, float(diff.max()))
+        assert float((diff > 0).float().mean()) <= K4_MAX_DIFFER, key
+
+
+def test_shade_kernel_matches_plain_committed_scene(cuda):
+    """K4 on K2's hits of a 256x256 test camera of the committed scene
+    (5 shells, sh_degree 2), against the plain version on the card."""
+    r = BakedMeshRenderer(baked_scene.COMMITTED_SCENE, device=cuda)
+    cam = MVDataset("synthetic", "sphere", "", splits=("test",),
+                    config={"width": 256, "height": 256})["test"].cameras[0]
+    intr, poses = r.camera_tensors([cam])
+    rays_o, rays_d = camera_rays(intr[0], poses[0], cam.width, cam.height)
+    hits = TB.trace_all(r.stacked_bvh, rays_o, rays_d)
+    args = r.shade_inputs(hits, rays_d)
+    out = SH.shade_composite(*args)
+    ref = SH._shade_composite_reference(*args)
+    torch.cuda.synchronize()
+    assert 0.2 < float(hits["is_hit"].float().mean()) < 0.95
+    _assert_shade_close(out, ref)
+
+
+def test_shade_kernel_matches_plain_edges_sh3(cuda, tmp_path):
+    """K4 on a sh_degree 3 scene (two shells, mesh 0 ignores alpha) at uvs on
+    texture edges, outside [0, 1] and on texel centres: each hit is face 0
+    of a one-face UV table whose vertex UVs are (0, 0), (1, 0), (0, 1), so
+    that the barycentrics are the uv; a fifth of the hits are misses."""
+    res = (16, 8, 4, 2)
+    baked_scene.write_random_scene(str(tmp_path), baked_scene.committed_mesh_files()[:2], res, 3,
+                                   seed=3)
+    r = BakedMeshRenderer(str(tmp_path), device=cuda)
+    u, v = edge_uvs(res, 4000, seed=4)
+    N = u.shape[0]
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((N, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    bary = np.stack([u, v], -1).astype(np.float32)
+    hits = {
+        "is_hit": torch.from_numpy(rng.uniform(size=(2, N)) > 0.2).to(cuda),
+        "triangles_id": torch.zeros(2, N, dtype=torch.int64, device=cuda),
+        "barycentric": torch.from_numpy(np.stack([bary, bary[::-1].copy()])).to(cuda),
+    }
+    face_uv = torch.tensor([[0.0, 0.0, 1.0, 0.0, 0.0, 1.0]], device=cuda)
+    face_offsets = torch.zeros(2, dtype=torch.int64, device=cuda)
+    rays_d = torch.from_numpy(d.astype(np.float32)).to(cuda)
+    args = (hits, face_uv, face_offsets, rays_d, r.band_textures, r.ignore_alpha_flags,
+            r.bg_color, r.sh_degree)
+    out = SH.shade_composite(*args)
+    ref = SH._shade_composite_reference(*args)
+    torch.cuda.synchronize()
+    _assert_shade_close(out, ref)
+
+
+def test_baked_renderer_frame_entry_points_agree(cuda):
+    """render() in 65,536-ray chunks equals render_frame and one frame of
+    render_frames_device, whose overflow is zero."""
+    r = BakedMeshRenderer(baked_scene.COMMITTED_SCENE, device=cuda)
+    cam = MVDataset("synthetic", "sphere", "", splits=("test",),
+                    config={"width": 256, "height": 256})["test"].cameras[1]
+    frame = r.render_frame(cam)
+    assert np.array_equal(r.render(cam, chunk_size=65536), frame)
+    imgs, overflow = r.render_frames_device([cam, cam])
+    assert imgs.is_cuda and imgs.shape == (2, 256, 256, 3)
+    assert np.array_equal(imgs[1].cpu().numpy(), frame)
+    assert overflow.tolist() == [0, 0, 0]
+    r.stacked_bvh.check_step_cap()

@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from volsurfs_tpu_torch.datasets import baked_scene
+from volsurfs_tpu_torch.datasets.cameras import Camera
 from volsurfs_tpu_torch.methods import volsurfs as TV
 from volsurfs_tpu_torch.ops import bvh as TB
 from volsurfs_tpu_torch.ops import scatter_add as S
+from volsurfs_tpu_torch.ops import shade as SH
+from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer
 from volsurfs_tpu_torch.params.hyper_params import HyperParamsVolSurfs
 
 torch.set_num_threads(2)
@@ -59,6 +63,9 @@ def test_port_imports_with_jax_blocked():
         "import volsurfs_tpu_torch\n"
         "import volsurfs_tpu_torch.methods.volsurfs, volsurfs_tpu_torch.convert\n"
         "import volsurfs_tpu_torch.datasets.synthetic, volsurfs_tpu_torch.datasets.tensor_reel\n"
+        "import volsurfs_tpu_torch.renderers.mesh_renderer, volsurfs_tpu_torch.renderers.viewer\n"
+        "import volsurfs_tpu_torch.datasets.mvdataset, volsurfs_tpu_torch.datasets.baked_scene\n"
+        "import volsurfs_tpu_torch.utils.png, volsurfs_tpu_torch.utils.evaluation\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -102,3 +109,35 @@ def test_cpu_tensors_take_the_plain_versions():
     assert bool(hits["is_hit"][0, 0])
     assert S.launches == {"scatter_add": 0, "scatter_add_reference": 1}
     assert TB.launches == {"bvh_trace": 0, "bvh_trace_reference": 1}
+
+
+def test_baked_renderer_without_device_needs_cuda(monkeypatch):
+    """BakedMeshRenderer's default device is CUDA; without it the
+    constructor raises instead of rendering on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        BakedMeshRenderer(baked_scene.COMMITTED_SCENE)
+
+
+def test_cpu_rays_take_the_plain_shading(tmp_path):
+    """A renderer on the CPU shades through _shade_composite_reference (the
+    plain version of K4), for render_rays and the frame entry points."""
+    for counts in (SH.launches, TB.launches):
+        for key in counts:
+            counts[key] = 0
+    v, f, uv = _tetra()
+    obj = str(tmp_path / "tetra.obj")
+    from volsurfs_tpu_torch.baking.mesh_io import save_obj
+
+    save_obj(obj, v, f, uv)
+    baked_scene.write_random_scene(str(tmp_path / "scene"), [obj], (4, 2), 1)
+    r = BakedMeshRenderer(str(tmp_path / "scene"), device="cpu")
+    out = r.render_rays(torch.tensor([[0.1, 0.1, -2.0]]), torch.tensor([[0.0, 0.0, 1.0]]))
+    assert out["rgb"].shape == (1, 3) and float(out["bg_transmittance"][0, 0]) < 1.0
+    cam = Camera(intrinsics=np.asarray([[8.0, 0, 4], [0, 8.0, 4], [0, 0, 1]], np.float32),
+                 pose=np.asarray([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2], [0, 0, 0, 1]],
+                                 np.float32), width=8, height=8)
+    imgs, overflow = r.render_frames_device([cam])
+    assert not imgs.is_cuda and imgs.shape == (1, 8, 8, 3) and overflow.tolist() == [0, 0, 0]
+    assert SH.launches == {"shade": 0, "shade_reference": 2}
+    assert TB.launches == {"bvh_trace": 0, "bvh_trace_reference": 2}

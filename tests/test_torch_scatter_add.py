@@ -66,3 +66,29 @@ def test_scatter_add_rows_reference_matches_numpy(nr_feat):
     out = S.scatter_add_rows_reference(torch.from_numpy(rows), torch.from_numpy(upd), nr_rows)
     assert out.shape == (nr_rows, nr_feat) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_scatter_add_rows_drops_rows_out_of_range():
+    """Rows [0, 5, -1, 9] into 8 rows: -1 and 9 are dropped, as kernel K1
+    drops them (exact: one addition per row)."""
+    rows = torch.tensor([0, 5, -1, 9], dtype=torch.int32)
+    upd = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0], [7.0, 8.0]])
+    out = S.scatter_add_rows(rows, upd, 8)
+    ref = np.zeros((8, 2), np.float32)
+    ref[0] = [1.0, 2.0]
+    ref[5] = [3.0, 4.0]
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_scatter_add_levels_drops_indices_out_of_range():
+    """A level-0 index equal to nr_rows (and one below 0) is dropped and no
+    longer lands in level 1's rows (exact: one addition per row)."""
+    nr_rows = 8
+    idx = torch.tensor([[nr_rows, 2, -1], [1, 3, 3]], dtype=torch.int32)
+    upd = torch.arange(12, dtype=torch.float32).reshape(2, 3, 2) + 1.0
+    out = S.scatter_add_levels(idx, upd, nr_rows).numpy()
+    ref = np.zeros((2, nr_rows, 2), np.float32)
+    ref[0, 2] = [3.0, 4.0]
+    ref[1, 1] = [7.0, 8.0]
+    ref[1, 3] = [9.0 + 11.0, 10.0 + 12.0]
+    np.testing.assert_array_equal(out, ref)

@@ -35,8 +35,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    # the trace kernel must round t, u, v as separate IEEE products and
-    # sums, as its plain version does (see csrc/bvh_trace.cu)
+    # the trace and shade kernels must round as separate IEEE products and
+    # sums, as their plain versions do (see csrc/bvh_trace.cu, csrc/shade.cu)
     "-fmad=false",
 ]
 GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
@@ -49,7 +49,10 @@ _LL = ctypes.c_longlong
 _KERNEL_SIGNATURES = {
     "scatter_add.cu": {"vs_scatter_add_rows": (_I, [_P, _P, _P, _LL, _I, _LL, _P])},
     "bvh_trace.cu": {
-        "vs_bvh_trace": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P]),
+        "vs_bvh_trace": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P]),
+    },
+    "shade.cu": {
+        "vs_shade_composite": (_I, [_P] * 11 + [_I, _I, _LL, _P, _P, _P]),
     },
 }
 _BVH_SIGNATURES = {

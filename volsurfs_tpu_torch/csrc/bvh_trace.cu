@@ -43,6 +43,11 @@
 // within a leaf and across nodes, the first minimum of a leaf wins, the box
 // test is t_far >= t_near && t_far > 0 && t_near < t_best, and 1/d is taken
 // of d clamped to 1e-12 where |d| < 1e-12.
+// Back-face culling (cull != nullptr): mesh m with cull[m] = +1 or -1 keeps
+// only the triangles for which cull[m] * det > 0, the faces whose winding
+// normal points back at the ray (for a hit at t > 0, n . (v0 - o) =
+// -t * det, so this is the JAX rasterizer's rule cull_sign * n . (v0 - o)
+// < 0 of renderers/raster.py::_project_face_bboxes); cull[m] = 0 keeps all.
 // Rounding: the triangle test of small triangles is ill-conditioned (u and
 // v are differences of products over a det of ~1e-4), so the order of
 // rounding shows in the 5th digit. The kernel spells out its fmas in the
@@ -81,7 +86,7 @@ bvh_trace_kernel(const float4 *__restrict__ nodes,
                  const float *__restrict__ rays_d, int nr_rays,
                  float *__restrict__ t_out, int *__restrict__ tri_out,
                  float *__restrict__ u_out, float *__restrict__ v_out,
-                 int *__restrict__ overflow) {
+                 const int *__restrict__ cull, int *__restrict__ overflow) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)k * nr_rays) return;
   int m = (int)(i / nr_rays);
@@ -96,6 +101,7 @@ bvh_trace_kernel(const float4 *__restrict__ nodes,
   int node = node_begin[m];
   const int end = node_end[m];
   const int cap = end - node + 1;
+  const float cull_sign = cull ? (float)cull[m] : 0.0f;
   int steps = 0;
   float t_best = INFINITY;
   int tri_best = -1;
@@ -165,7 +171,7 @@ bvh_trace_kernel(const float4 *__restrict__ nodes,
       const float v = fmaf(dz, qz, fmaf(dy, qy, dx * qx)) * inv_det;
       const float t = fmaf(s.z, qz, fmaf(s.y, qy, s.x * qx)) * inv_det;
       if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 1e-6f &&
-          t < t_best) {
+          t < t_best && (cull_sign == 0.0f || cull_sign * det > 0.0f)) {
         t_best = t;
         tri_best = __float_as_int(p.w);
         u_best = u;
@@ -185,8 +191,8 @@ extern "C" int vs_bvh_trace(const void *nodes, const void *tris,
                             const void *node_begin, const void *node_end,
                             int k, const void *rays_o, const void *rays_d,
                             int nr_rays, void *t_out, void *tri_out,
-                            void *u_out, void *v_out, void *overflow,
-                            int sms, void *stream) {
+                            void *u_out, void *v_out, const void *cull,
+                            void *overflow, int sms, void *stream) {
   long long n = (long long)k * nr_rays;
   if (n > 0) {
     int threads = kMaxThreads;
@@ -197,7 +203,7 @@ extern "C" int vs_bvh_trace(const void *nodes, const void *tris,
         (const float4 *)nodes, (const float4 *)tris, (const int *)node_begin,
         (const int *)node_end, k, (const float *)rays_o, (const float *)rays_d,
         nr_rays, (float *)t_out, (int *)tri_out, (float *)u_out,
-        (float *)v_out, (int *)overflow);
+        (float *)v_out, (const int *)cull, (int *)overflow);
   }
   return (int)cudaGetLastError();
 }

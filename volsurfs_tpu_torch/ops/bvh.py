@@ -260,6 +260,21 @@ def stack_bvhs(bvhs, device="cuda") -> StackedBVH:
     )
 
 
+def mesh_orientation(verts, faces) -> int:
+    """+1 if the mesh is wound with outward normals (positive signed
+    volume), -1 if inward, 0 if degenerate (|volume| tiny): the back-face
+    cull sign of ``trace_all`` (volsurfs_tpu/renderers/raster.py's
+    ``mesh_orientation``)."""
+    verts = np.asarray(verts, np.float64)
+    faces = np.asarray(faces, np.int64)
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    vol = np.sum(np.einsum("ij,ij->i", v0, np.cross(v1, v2))) / 6.0
+    scale = np.abs(verts).max() + 1e-12
+    if np.abs(vol) < 1e-9 * scale**3:
+        return 0
+    return 1 if vol > 0 else -1
+
+
 def _hits_dict(t_best, tri_best, u_best, v_best, rays_o, rays_d, k):
     """Kernel/loop outputs [k*R] -> the trace_all dict of [k, R, ...]."""
     R = rays_o.shape[0]
@@ -274,21 +289,25 @@ def _hits_dict(t_best, tri_best, u_best, v_best, rays_o, rays_d, k):
     }
 
 
-def trace_all(stacked: StackedBVH, rays_o, rays_d):
+def trace_all(stacked: StackedBVH, rays_o, rays_d, cull=None):
     """Closest hit of every ray against every mesh.
 
-    rays_o, rays_d [R, 3] float32. Returns is_hit [k, R], depth [k, R, 1],
-    positions [k, R, 3], barycentric [k, R, 2] (u, v: P = (1-u-v) V0 + u V1
-    + v V2) and triangles_id [k, R] (mesh-local face ids, -1 on a miss).
+    rays_o, rays_d [R, 3] float32. cull: None, or int32 [k] back-face cull
+    signs (``mesh_orientation``; 0 keeps every face of that mesh), valid only
+    for rays that start outside every closed shell. Returns is_hit [k, R],
+    depth [k, R, 1], positions [k, R, 3], barycentric [k, R, 2] (u, v: P =
+    (1-u-v) V0 + u V1 + v V2) and triangles_id [k, R] (mesh-local face ids,
+    -1 on a miss).
     """
     if not rays_o.is_cuda:
-        return trace_all_reference(stacked, rays_o, rays_d)
+        return trace_all_reference(stacked, rays_o, rays_d, cull)
     nodes, tris = stacked.nodes, stacked.tris
     begin, end = stacked.node_begin, stacked.node_end
     for name, x, dtype in (
         ("nodes", nodes, torch.float32), ("tris", tris, torch.float32),
         ("node_begin", begin, torch.int32), ("node_end", end, torch.int32),
         ("rays_o", rays_o, torch.float32), ("rays_d", rays_d, torch.float32),
+        ("cull", begin if cull is None else cull, torch.int32),
     ):
         if x.device != rays_o.device or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(
@@ -296,7 +315,8 @@ def trace_all(stacked: StackedBVH, rays_o, rays_d):
                 f"{rays_o.device}, got {x.dtype} on {x.device}"
             )
     if (nodes.ndim != 2 or nodes.shape[1] != 8 or tris.ndim != 2 or tris.shape[1] != 12
-            or rays_o.ndim != 2 or rays_o.shape[1] != 3 or rays_d.shape != rays_o.shape):
+            or rays_o.ndim != 2 or rays_o.shape[1] != 3 or rays_d.shape != rays_o.shape
+            or (cull is not None and cull.shape != begin.shape)):
         raise ValueError(
             f"trace_all: bad shapes {nodes.shape}, {tris.shape}, {rays_o.shape}, {rays_d.shape}"
         )
@@ -314,7 +334,8 @@ def trace_all(stacked: StackedBVH, rays_o, rays_d):
     status = _build.kernels().vs_bvh_trace(
         nodes.data_ptr(), tris.data_ptr(), begin.data_ptr(), end.data_ptr(), k,
         rays_o.data_ptr(), rays_d.data_ptr(), R, t_best.data_ptr(), tri_best.data_ptr(),
-        u_best.data_ptr(), v_best.data_ptr(), stacked.step_cap.count.data_ptr(),
+        u_best.data_ptr(), v_best.data_ptr(), None if cull is None else cull.data_ptr(),
+        stacked.step_cap.count.data_ptr(),
         torch.cuda.get_device_properties(dev).multi_processor_count,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -331,8 +352,10 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _moller_trumbore(tris, rays_o, rays_d, eps=1e-9):
-    """tris [B, L, 9] as (v0, e1, e2); rays [B, 3] -> (t, u, v, hit) [B, L].
+def _moller_trumbore(tris, rays_o, rays_d, cull_sign=None, eps=1e-9):
+    """tris [B, L, 9] as (v0, e1, e2); rays [B, 3]; cull_sign None or [B]
+    float (+1 or -1 keeps the faces with cull_sign * det > 0, 0 keeps all)
+    -> (t, u, v, hit) [B, L].
 
     Written out component by component with the fmas of the kernel
     (csrc/bvh_trace.cu), so that both round alike."""
@@ -355,10 +378,13 @@ def _moller_trumbore(tris, rays_o, rays_d, eps=1e-9):
     v = _fma(d[2], qz, _fma(d[1], qy, d[0] * qx)) * inv_det
     t = _fma(e2[2], qz, _fma(e2[1], qy, e2[0] * qx)) * inv_det
     hit = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-6)
+    if cull_sign is not None:
+        cs = cull_sign[:, None]
+        hit = hit & ((cs == 0.0) | (cs * det > 0.0))
     return t, u, v, hit
 
 
-def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, return_work=False):
+def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, cull=None, return_work=False):
     """Plain version of ``trace_all``: every (mesh, ray) cursor advances one
     node per iteration, in lockstep, until all have left their mesh's rows.
     It reads K2's layout (``stacked.nodes``, ``stacked.tris``) and makes
@@ -380,6 +406,7 @@ def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, return_work=False):
     inv_d = 1.0 / torch.where(torch.abs(d) < 1e-12, 1e-12, d)
     node = stacked.node_begin.long().repeat_interleave(R)
     end = stacked.node_end.long().repeat_interleave(R)
+    cull_sign = None if cull is None else cull.float().repeat_interleave(R)
     t_best = torch.full((k * R,), float("inf"), device=o.device)
     tri_best = torch.full((k * R,), -1, dtype=torch.long, device=o.device)
     u_best = torch.zeros(k * R, device=o.device)
@@ -413,7 +440,7 @@ def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, return_work=False):
             triangle_tests += count.sum()
             visits += active
             visited[node[active]] = True
-        t, u, v, hit = _moller_trumbore(tri[..., mt_cols], o, d)
+        t, u, v, hit = _moller_trumbore(tri[..., mt_cols], o, d, cull_sign)
         hit = hit & real & (t < t_best[:, None])
         t = torch.where(hit, t, float("inf"))
         t_leaf, j = torch.min(t, dim=-1)  # first minimum wins

@@ -20,17 +20,21 @@ launches = {"scatter_add": 0, "scatter_add_reference": 0}
 
 
 def scatter_add_rows_reference(rows, upd, total_rows: int):
-    """Plain version: rows [M] int, upd [M, F] -> [total_rows, F]."""
+    """Plain version: rows [M] int, upd [M, F] -> [total_rows, F]. Rows
+    outside [0, total_rows) are dropped, as the kernel drops them."""
     launches["scatter_add_reference"] += 1
+    rows = rows.long()
+    keep = (rows >= 0) & (rows < total_rows)
+    rows, upd = rows[keep], upd[keep]
     out = torch.zeros(total_rows, upd.shape[1], dtype=upd.dtype, device=upd.device)
-    return out.scatter_add_(0, rows.long()[:, None].expand(-1, upd.shape[1]), upd)
+    return out.scatter_add_(0, rows[:, None].expand(-1, upd.shape[1]), upd)
 
 
 def scatter_add_rows(rows, upd, total_rows: int):
     """out [total_rows, F] with out[rows[m], :] += upd[m, :].
 
-    rows [M] int32 absolute rows in [0, total_rows) (rows outside are
-    dropped by the kernel); upd [M, F] float32.
+    rows [M] int32 absolute rows; rows outside [0, total_rows) are dropped,
+    by the kernel and by the plain version alike. upd [M, F] float32.
     """
     if not upd.is_cuda:
         return scatter_add_rows_reference(rows, upd, total_rows)
@@ -57,15 +61,21 @@ def scatter_add_rows(rows, upd, total_rows: int):
 
 
 def _level_rows(idx, nr_rows: int):
+    """Absolute rows of per-level indices; an index outside [0, nr_rows)
+    becomes -1, which the scatter drops, so it cannot land in another
+    level's rows."""
     L = idx.shape[0]
     offsets = torch.arange(L, dtype=torch.int32, device=idx.device)[:, None] * nr_rows
-    return (idx.to(torch.int32) + offsets).reshape(-1)
+    idx = idx.to(torch.int32)
+    rows = torch.where((idx >= 0) & (idx < nr_rows), idx + offsets, -1)
+    return rows.reshape(-1)
 
 
 def scatter_add_levels(idx, upd, nr_rows: int):
     """Per-level scatter-add: out[l, idx[l, m], :] += upd[l, m, :].
 
-    idx [L, M] int in [0, nr_rows); upd [L, M, F] float32.
+    idx [L, M] int; an index outside [0, nr_rows) is dropped (the JAX
+    Pallas kernel leaves it undefined). upd [L, M, F] float32.
     Returns [L, nr_rows, F] float32.
     """
     L, M = idx.shape
