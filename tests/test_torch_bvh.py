@@ -215,6 +215,25 @@ def test_trace_culls_back_faces(two_meshes):
     assert_hits_match(plain, TB.trace_all(stacked, centre, d, sign[-1]))
 
 
+def test_trace_buffers_are_the_dict_hits(two_meshes):
+    """trace_all_buffers gives the [k*R] buffers that trace_all's dict is
+    built from: face ids as int32 (-1 on a miss), u and v, and t where the
+    ray hits (inf where it misses), culled and not."""
+    rng = np.random.default_rng(12)
+    rays_o, rays_d = random_rays(rng, 512)
+    o, d = torch.from_numpy(rays_o), torch.from_numpy(rays_d)
+    stacked = TB.stack_bvhs([TB.build_bvh(v, f) for v, f, _ in two_meshes], "cpu")
+    for cull in (None, torch.tensor([1, -1], dtype=torch.int32)):
+        ref = TB.trace_all(stacked, o, d, cull)
+        t, tri, u, v = TB.trace_all_buffers(stacked, o, d, cull)
+        assert tri.dtype == torch.int32 and t.shape == tri.shape == u.shape == v.shape == (1024,)
+        assert torch.equal(tri.reshape(2, 512).long(), ref["triangles_id"])
+        assert torch.equal(torch.stack([u, v], -1).reshape(2, 512, 2), ref["barycentric"])
+        hit = ref["is_hit"].reshape(-1)
+        assert torch.equal(t[hit], ref["depth"].reshape(-1)[hit])
+        assert bool(torch.isinf(t[~hit]).all()) and 0.1 < float(hit.float().mean()) < 0.95
+
+
 def test_face_id_rule_excuses_only_ties(two_meshes):
     """The tie rule of the trace checks: a face id moved to a neighbour
     slot is counted, the trace's own ids are not, and a second face at the

@@ -12,11 +12,13 @@ import torch
 
 from volsurfs_tpu_torch.baking.mesh_io import load_obj
 from volsurfs_tpu_torch.datasets import baked_scene
+from volsurfs_tpu_torch.datasets.cameras import get_camera_rays
 from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
 from volsurfs_tpu_torch.ops import bvh as TB
 from volsurfs_tpu_torch.ops import scatter_add as S
 from volsurfs_tpu_torch.ops import shade as SH
 from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer, camera_rays
+from volsurfs_tpu_torch.renderers.viewer import OrbitCamera
 
 from _baked_uvs import edge_uvs
 
@@ -157,9 +159,10 @@ def test_shade_kernel_matches_plain_committed_scene(cuda):
                     config={"width": 256, "height": 256})["test"].cameras[0]
     intr, poses = r.camera_tensors([cam])
     rays_o, rays_d = camera_rays(intr[0], poses[0], cam.width, cam.height)
-    hits = TB.trace_all(r.stacked_bvh, rays_o, rays_d)
+    _, tri, u, v = TB.trace_all_buffers(r.stacked_bvh, rays_o, rays_d)
+    hits = SH.hits_from_buffers(tri, u, v, r.nr_meshes)
     args = r.shade_inputs(hits, rays_d)
-    out = SH.shade_composite(*args)
+    out = SH.shade_composite_buffers(tri, u, v, *args[1:])
     ref = SH._shade_composite_reference(*args)
     torch.cuda.synchronize()
     assert 0.2 < float(hits["is_hit"].float().mean()) < 0.95
@@ -181,30 +184,112 @@ def test_shade_kernel_matches_plain_edges_sh3(cuda, tmp_path):
     d = rng.standard_normal((N, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     bary = np.stack([u, v], -1).astype(np.float32)
-    hits = {
-        "is_hit": torch.from_numpy(rng.uniform(size=(2, N)) > 0.2).to(cuda),
-        "triangles_id": torch.zeros(2, N, dtype=torch.int64, device=cuda),
-        "barycentric": torch.from_numpy(np.stack([bary, bary[::-1].copy()])).to(cuda),
-    }
+    tri = torch.from_numpy(np.where(rng.uniform(size=2 * N) > 0.2, 0, -1).astype(np.int32))
+    bary2 = torch.from_numpy(np.stack([bary, bary[::-1].copy()]))  # [2, N, 2]
+    tri, uu, vv = (x.contiguous().to(cuda) for x in (tri, bary2[..., 0], bary2[..., 1]))
+    uu, vv = uu.view(-1), vv.view(-1)
+    hits = SH.hits_from_buffers(tri, uu, vv, 2)
     face_uv = torch.tensor([[0.0, 0.0, 1.0, 0.0, 0.0, 1.0]], device=cuda)
     face_offsets = torch.zeros(2, dtype=torch.int64, device=cuda)
     rays_d = torch.from_numpy(d.astype(np.float32)).to(cuda)
-    args = (hits, face_uv, face_offsets, rays_d, r.band_textures, r.ignore_alpha_flags,
-            r.bg_color, r.sh_degree)
-    out = SH.shade_composite(*args)
-    ref = SH._shade_composite_reference(*args)
+    args = (face_uv, face_offsets, rays_d, r.band_textures, r.ignore_alpha_flags, r.bg_color,
+            r.sh_degree)
+    out = SH.shade_composite_buffers(tri, uu, vv, *args)
+    ref = SH._shade_composite_reference(hits, *args)
     torch.cuda.synchronize()
     _assert_shade_close(out, ref)
 
 
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
+def test_shade_kernel_tiled_matches_plain_ragged_frame(cuda, tmp_path, sh_degree):
+    """K4 in 16x8 pixel tiles on a 37x23 frame (neither side a multiple of
+    the tile) of three shells at each SH degree, on K2's culled buffers: it
+    equals K4 over the rays in order (width 0) bit for bit, and its plain
+    version (on trace_all's dict) within K4_ATOL."""
+    baked_scene.write_random_scene(str(tmp_path), baked_scene.committed_mesh_files()[:3],
+                                   (64, 32, 16, 8), sh_degree, seed=sh_degree)
+    r = BakedMeshRenderer(str(tmp_path), device=cuda)
+    oc = OrbitCamera(37, 23, radius=1.6)
+    oc.azimuth = 0.7
+    cam = oc.camera()
+    intr, poses = r.camera_tensors([cam])
+    rays_o, rays_d = camera_rays(intr[0], poses[0], 37, 23)
+    cull = r.frame_cull([cam])
+    _, tri, u, v = TB.trace_all_buffers(r.stacked_bvh, rays_o, rays_d, cull)
+    rest = (r.face_uv, r.face_offsets, rays_d, r.band_textures, r.ignore_alpha_flags,
+            r.bg_color, r.sh_degree)
+    tiled = SH.shade_composite_buffers(tri, u, v, *rest, width=37)
+    linear = SH.shade_composite_buffers(tri, u, v, *rest)
+    hits = TB.trace_all(r.stacked_bvh, rays_o, rays_d, cull)
+    ref = SH._shade_composite_reference(hits, *rest)
+    torch.cuda.synchronize()
+    for key in ("rgb", "bg_transmittance"):
+        assert torch.equal(tiled[key], linear[key]), key
+    assert 0.1 < float(hits["is_hit"].float().mean()) < 0.95
+    _assert_shade_close(tiled, ref)
+    r.stacked_bvh.check_step_cap()
+
+
+def _half_pairs(rng, n_random):
+    """float16 operand pairs (a, b): n_random random finite ones; every
+    byte 0-255 times every float16 weight in [0, 1]; and every pair of edge
+    values (zeros, subnormals, the smallest normal, +-65504, values whose
+    sums and products fall on ties)."""
+    bits = rng.integers(0, 1 << 16, (2, n_random), dtype=np.uint16)
+    bits = np.where((bits & 0x7C00) == 0x7C00, bits & 0x83FF, bits)  # no inf or NaN
+    a, b = bits.view(np.float16)
+    byte = np.repeat(np.arange(256, dtype=np.float16), 0x3C01)
+    weight = np.tile(np.arange(0x3C01, dtype=np.uint16).view(np.float16), 256)
+    edges = np.array([0x0000, 0x8000, 0x0001, 0x8001, 0x0002, 0x03FF, 0x83FF, 0x0400, 0x8400,
+                      0x3C00, 0xBC00, 0x3C01, 0x3BFF, 0x1000, 0x0E00, 0x1400, 0x3800, 0x6400,
+                      0x6800, 0x5BF8, 0x7BFF, 0xFBFF, 0x7BFE, 0x4000, 0x4200, 0x0200],
+                     np.uint16).view(np.float16)
+    ea, eb = np.meshgrid(edges, edges, indexing="ij")
+    a = np.concatenate([a, byte, ea.reshape(-1)])
+    b = np.concatenate([b, weight, eb.reshape(-1)])
+    n = a.shape[0] - a.shape[0] % 2
+    return a[:n], b[:n]
+
+
+def test_half_ops_match_float32_rounding(cuda):
+    """K4's float16 arithmetic: the half2 and half _rn products, sums and
+    differences equal the float32 ones rounded to float16, bit for bit, on
+    10^7 random pairs, every texel byte times every weight in [0, 1] and
+    the edge values; and K4's products of the four bytes of a texel word
+    with a weight (a byte under the exponent of 1024, one fma) equal the
+    rounded float32 products wherever a is a byte and b a weight."""
+    a_np, b_np = _half_pairs(np.random.default_rng(9), 10_000_000)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    native, rounded, texel = SH.half_ops_check(a, b)
+    torch.cuda.synchronize()
+    for row, name in enumerate(("h2mul", "h2add", "h2sub", "hmul", "hadd", "hsub")):
+        same = native[row].view(torch.int16) == rounded[row % 3].view(torch.int16)
+        assert bool(same.all()), (name, int((~same).sum()))
+    af = a.float()
+    # sign bits clear: K4's texel bytes and weights are never -0
+    byte_weight = ((af == af.round()) & (a.view(torch.int16) >= 0) & (af <= 255)
+                   & (b.view(torch.int16) >= 0) & (b <= 1))
+    assert int(byte_weight.sum()) >= 256 * 0x3C01
+    for row in range(4):
+        same = texel[row].view(torch.int16) == rounded[0].view(torch.int16)
+        assert bool(same[byte_weight].all()), (row, int((~same[byte_weight]).sum()))
+
+
 def test_baked_renderer_frame_entry_points_agree(cuda):
-    """render() in 65,536-ray chunks equals render_frame and one frame of
-    render_frames_device, whose overflow is zero."""
+    """render() in 65,536-ray chunks equals render_rays on get_camera_rays'
+    rays with no culling, as JAX's render traces; render_frame equals
+    render_rays on camera_rays' rays with the frame's cull signs, and one
+    frame of render_frames_device, whose overflow is zero."""
     r = BakedMeshRenderer(baked_scene.COMMITTED_SCENE, device=cuda)
     cam = MVDataset("synthetic", "sphere", "", splits=("test",),
                     config={"width": 256, "height": 256})["test"].cameras[1]
+    rays_o, rays_d = (torch.from_numpy(x).to(cuda) for x in get_camera_rays(cam))
+    unculled = r.render_rays(rays_o, rays_d)["rgb"].reshape(256, 256, 3).cpu().numpy()
+    assert np.array_equal(r.render(cam, chunk_size=65536), unculled)
     frame = r.render_frame(cam)
-    assert np.array_equal(r.render(cam, chunk_size=65536), frame)
+    intr, poses = r.camera_tensors([cam])
+    culled = r.render_rays(*camera_rays(intr[0], poses[0], 256, 256), r.frame_cull([cam]))
+    assert np.array_equal(culled["rgb"].reshape(256, 256, 3).cpu().numpy(), frame)
     imgs, overflow = r.render_frames_device([cam, cam])
     assert imgs.is_cuda and imgs.shape == (2, 256, 256, 3)
     assert np.array_equal(imgs[1].cpu().numpy(), frame)

@@ -19,6 +19,7 @@ from volsurfs_tpu_torch.datasets import baked_scene
 from volsurfs_tpu_torch.datasets.cameras import get_camera_rays
 from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
 from volsurfs_tpu_torch.ops import bvh as TB
+from volsurfs_tpu_torch.ops import shade as SH
 from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer, camera_rays
 from volsurfs_tpu_torch.renderers.viewer import OrbitCamera
 from volsurfs_tpu_torch.utils.evaluation import psnr
@@ -58,8 +59,10 @@ def test_render_rays_matches_jax(committed, monkeypatch):
     rays_o, rays_d = get_camera_rays(_test_camera(256))
     rays_o, rays_d = rays_o[::32].copy(), rays_d[::32].copy()
     o, d = torch.from_numpy(rays_o), torch.from_numpy(rays_d)
-    hits = TB.trace_all(tr.stacked_bvh, o, d)
-    out = tr.shade(hits, d)  # what render_rays returns, without tracing twice
+    _, tri, u, v = TB.trace_all_buffers(tr.stacked_bvh, o, d)
+    hits = SH.hits_from_buffers(tri, u, v, tr.nr_meshes)
+    # what render_rays returns, without tracing twice
+    out = SH.shade_composite_buffers(tri, u, v, *tr.shade_inputs(hits, d)[1:])
     jhits = jax.jit(JMR.B.trace_all)(jr.stacked_bvh, jnp.asarray(rays_o), jnp.asarray(rays_d))
     for key in ("is_hit", "triangles_id", "barycentric"):
         np.testing.assert_array_equal(hits[key].numpy(), np.asarray(jhits[key]), err_msg=key)
@@ -140,21 +143,38 @@ def test_render_frame_matches_jax_frame_path(committed):
 
 
 def test_frame_entry_points_agree_on_cpu(committed):
-    """render() in chunks equals render_frames_device's frame, which equals
-    render_rays on the same rays with the frame's cull signs; no overflow
-    (24x24, few traces)."""
+    """render() in chunks equals render_rays on get_camera_rays' rays with
+    no culling, in one call, as JAX's render traces them;
+    render_frames_device's frames equal render_rays on camera_rays' rays
+    with the frames' cull signs; no overflow (24x24, few traces)."""
     tr = committed[1]
     cams = MVDataset("synthetic", "sphere", "", splits=("test",),
                      config={"width": 24, "height": 24})["test"].cameras[:2]
+    assert tr.cameras_outside(cams)
     imgs, overflow = tr.render_frames_device(cams)
     assert imgs.shape == (2, 24, 24, 3) and overflow.tolist() == [0, 0, 0]
-    frame = imgs[1].numpy()
-    assert np.array_equal(tr.render(cams[1], chunk_size=300), frame)
-    it, pt = tr.camera_tensors(cams[:1])
-    out = tr.render_rays(*camera_rays(it[0], pt[0], 24, 24), tr.frame_cull(cams[:1]))
-    assert torch.equal(out["rgb"].reshape(24, 24, 3), imgs[0])
-    assert out["bg_transmittance"].shape == (24 * 24, 1)
+    rays_o, rays_d = (torch.from_numpy(x) for x in get_camera_rays(cams[1]))
+    unculled = tr.render_rays(rays_o, rays_d)["rgb"].reshape(24, 24, 3).numpy()
+    assert np.array_equal(tr.render(cams[1], chunk_size=300), unculled)
+    for i in range(2):
+        it, pt = tr.camera_tensors(cams[i:i + 1])
+        out = tr.render_rays(*camera_rays(it[0], pt[0], 24, 24), tr.frame_cull(cams[i:i + 1]))
+        assert torch.equal(out["rgb"].reshape(24, 24, 3), imgs[i])
+        assert out["bg_transmittance"].shape == (24 * 24, 1)
     assert 0.0 < float((imgs[0] != 1.0).any(-1).float().mean()) < 1.0
+
+
+def test_render_matches_jax(committed):
+    """render() of a 32x32 test camera against JAX's render (the traced
+    path, no culling) within JIT_ATOL: both take get_camera_rays' rays, and
+    JAX's render is jitted."""
+    jr, tr = committed
+    cam = _test_camera(32)
+    img, ref = tr.render(cam, chunk_size=700), jr.render(cam)
+    assert img.shape == ref.shape == (32, 32, 3) and img.dtype == np.float32
+    diff = np.abs(img - ref)
+    assert diff.max() <= JIT_ATOL, diff.max()
+    assert 0.0 < float((img != 1.0).any(-1).mean()) < 1.0
 
 
 def test_orbit_camera_matches_jax():

@@ -27,7 +27,7 @@ FORBIDDEN = ("jax", "flax", "optax", "volsurfs_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py")]
     for root, _, names in os.walk(os.path.join(REPO, "volsurfs_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -3,7 +3,8 @@ the CPU path of kernel K4) against the JAX BakedMeshRenderer's
 ``_sample_bands_mesh`` and ``_shade_mesh``, run op by op, on the same uvs:
 texture edges, uvs outside [0, 1], exact texel centres and random points,
 for every mesh of the committed scene (mesh 0 ignores alpha) and of a tiny
-sh_degree 3 scene written in the test."""
+sh_degree 3 scene written in the test; and its entry on K2's raw buffers
+against the plain version on trace_all's dict of the same hits."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +13,10 @@ import torch
 
 from volsurfs_tpu.renderers.mesh_renderer import BakedMeshRenderer as JaxRenderer
 from volsurfs_tpu_torch.datasets import baked_scene
+from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
+from volsurfs_tpu_torch.ops import bvh as TB
 from volsurfs_tpu_torch.ops import shade as SH
-from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer
+from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer, camera_rays
 
 from _baked_uvs import edge_uvs
 
@@ -113,3 +116,58 @@ def test_face_uv_table_matches_face_attr(committed):
         ref = mesh.face_attr(mesh.uvs, tri, bary)
         out = SH.interp_uv(tr.face_uv, int(tr.face_offsets[m]), tri, bary)
         assert torch.equal(out, ref)
+
+
+def _assert_entries_equal(tri, u, v, hits, face_uv, face_offsets, rays_d, r):
+    """The raw-buffer entry and the plain version on the dict of the same
+    hits give the same rgb and bg_transmittance, bit for bit."""
+    rest = (face_uv, face_offsets, rays_d, r.band_textures, r.ignore_alpha_flags, r.bg_color,
+            r.sh_degree)
+    out = SH.shade_composite_buffers(tri, u, v, *rest)
+    ref = SH._shade_composite_reference(hits, *rest)
+    for key in ("rgb", "bg_transmittance"):
+        assert torch.equal(out[key], ref[key]), key
+
+
+def test_buffer_entry_equals_dict_entry_committed_frame(committed):
+    """K2's buffers of a 64x64 test camera, culled as the frame path culls,
+    make trace_all's dict hits, and both shading entries agree bit for
+    bit."""
+    tr = committed[1]
+    cam = MVDataset("synthetic", "sphere", "", splits=("test",),
+                    config={"width": 64, "height": 64})["test"].cameras[0]
+    it, pt = tr.camera_tensors([cam])
+    rays_o, rays_d = camera_rays(it[0], pt[0], 64, 64)
+    cull = tr.frame_cull([cam])
+    _, tri, u, v = TB.trace_all_buffers(tr.stacked_bvh, rays_o, rays_d, cull)
+    hits = TB.trace_all(tr.stacked_bvh, rays_o, rays_d, cull)
+    for key, x in SH.hits_from_buffers(tri, u, v, tr.nr_meshes).items():
+        assert torch.equal(x, hits[key]), key
+    assert 0.05 < float(hits["is_hit"].float().mean()) < 0.95
+    _assert_entries_equal(tri, u, v, hits, tr.face_uv, tr.face_offsets, rays_d, tr)
+
+
+def test_buffer_entry_equals_dict_entry_edges_sh3(tmp_path):
+    """The tiny sh_degree 3 scene at uvs on texture edges, outside [0, 1]
+    and on texel centres: each hit is face 0 of a one-face UV table whose
+    vertex UVs are (0, 0), (1, 0), (0, 1), so that the barycentrics are the
+    uv; a fifth of the (shell, ray) pairs miss."""
+    res = (16, 8, 4, 2)
+    baked_scene.write_random_scene(str(tmp_path), baked_scene.committed_mesh_files()[:2], res, 3,
+                                   seed=6)
+    r = BakedMeshRenderer(str(tmp_path), device="cpu")
+    u, v = edge_uvs(res, 2000, seed=7)
+    N = u.shape[0]
+    rng = np.random.default_rng(8)
+    d = rng.standard_normal((N, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tri = np.where(rng.uniform(size=2 * N) > 0.2, 0, -1).astype(np.int32)
+    uu = np.concatenate([u, v]).astype(np.float32)
+    vv = np.concatenate([v, u]).astype(np.float32)
+    hits = {"is_hit": torch.from_numpy(tri.reshape(2, N) >= 0),
+            "triangles_id": torch.from_numpy(tri.reshape(2, N).astype(np.int64)),
+            "barycentric": torch.from_numpy(np.stack([uu, vv], -1).reshape(2, N, 2))}
+    face_uv = torch.tensor([[0.0, 0.0, 1.0, 0.0, 0.0, 1.0]])
+    _assert_entries_equal(torch.from_numpy(tri), torch.from_numpy(uu), torch.from_numpy(vv),
+                          hits, face_uv, torch.zeros(2, dtype=torch.int64),
+                          torch.from_numpy(d.astype(np.float32)), r)

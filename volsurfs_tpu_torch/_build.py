@@ -18,6 +18,7 @@ renames it, so concurrent processes never load a half-written library.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -52,7 +53,8 @@ _KERNEL_SIGNATURES = {
         "vs_bvh_trace": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P]),
     },
     "shade.cu": {
-        "vs_shade_composite": (_I, [_P] * 11 + [_I, _I, _LL, _P, _P, _P]),
+        "vs_shade_composite": (_I, [_P] * 10 + [_I, _I, _LL, _I, _P, _P, _P]),
+        "vs_half_ops_check": (_I, [_P, _P, _LL, _P, _P]),
     },
 }
 _BVH_SIGNATURES = {
@@ -67,10 +69,14 @@ class BuildError(RuntimeError):
     """A compiler run failed; the message carries its stderr."""
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
+    path = os.path.join(cuda_home, "bin", name)
+    return path if os.path.exists(path) else name
+
+
+def _nvcc() -> str:
+    return _cuda_tool("nvcc")
 
 
 def _digest(sources, cmd) -> str:
@@ -203,6 +209,62 @@ def kernel_resources() -> dict:
                 if m and name:
                     out[name]["registers"] = int(m.group(1))
     return out
+
+
+# SASS opcodes counted apart by ``sass_counts``: global loads, the
+# conversions between float32 and float16 or integers, the half2 and half
+# arithmetic, and the byte permutes
+_SASS_CLASSES = {
+    "loads": ("LDG",),
+    "conversions": ("F2F", "I2F", "F2I", "F2FP", "HADD2.F32"),
+    "half_ops": ("HADD2", "HMUL2", "HFMA2"),
+    "byte_permutes": ("PRMT",),
+}
+
+
+def _class_counts(ops) -> dict:
+    counts = {"total": sum(ops.values())}
+    for cls, prefixes in _SASS_CLASSES.items():
+        counts[cls] = sum(
+            n for op, n in ops.items()
+            if any(op == p or op.startswith(p + ".") for p in prefixes)
+            and not (cls == "half_ops" and op.startswith("HADD2.F32")))
+    return counts
+
+
+def sass_counts(lib_path: str | None = None) -> dict:
+    """Static SASS instruction counts of each kernel in a built library (by
+    default K4's), from ``cuobjdump -sass``: {kernel: {"total", "loads",
+    "conversions", "half_ops", "byte_permutes", "loop", "by_opcode"}}.
+    NOPs are not counted; ``conversions`` takes ``HADD2.F32`` (a float16 to
+    float32 conversion on sm_90) and leaves it out of ``half_ops``.
+    ``loop`` holds the same counts for the instructions of the kernel's
+    longest loop (from the target of its longest backward branch to the
+    branch): in K4 the loop over shells, whose body is one hit's work."""
+    if lib_path is None:
+        lib_path = os.path.join(BUILD_DIR, _kernel_lib_name("shade.cu"))
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    kernels, code = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            code = kernels.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", line)
+        if m and code is not None and m.group(2) != "NOP":
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    result = {}
+    for name, code in kernels.items():
+        ops = collections.Counter(op for _, op, _ in code)
+        back = [(addr - int(t.group(1), 16), int(t.group(1), 16), addr)
+                for addr, op, rest in code if op == "BRA"
+                for t in [re.search(r"0x([0-9a-f]+)", rest)] if t and int(t.group(1), 16) < addr]
+        _, first, last = max(back, default=(0, 0, -1))
+        loop = collections.Counter(op for addr, op, _ in code if first <= addr <= last)
+        result[name] = {**_class_counts(ops), "loop": _class_counts(loop),
+                        "by_opcode": dict(ops.most_common())}
+    return result
 
 
 def check(status: int, what: str) -> None:

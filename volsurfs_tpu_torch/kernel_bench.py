@@ -12,9 +12,10 @@
   one with the most hits) and the whole 256x256 frame (5 x 65,536 rays).
 
 Prints the card's name and power limit, then one JSON line per (kernel,
-shape) with ``ms`` (median of CUDA-event timings) and ``device_ms`` (device
-time in a torch.profiler trace, and ``device_split``, the same by device
-event). It calls only the kernels' public
+shape) with ``ms`` (median of CUDA-event timings of one call) and
+``device_ms`` (CUDA events around 10 calls queued back to back behind a
+spin kernel, over 10), and ``device_split`` (device time by event name in
+a torch.profiler trace, ``profile_calls``). It calls only the kernels' public
 wrappers, so the same file times any tree of the port: copied into another
 checkout's ``volsurfs_tpu_torch/``, with ``datasets/sphere_scene.py``, it
 times that checkout's kernels. ``chip_smoke.py`` builds its kernel checks
@@ -23,8 +24,10 @@ on the same inputs and timers.
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -67,26 +70,108 @@ def device_kernels(prof):
     ]
 
 
-def device_times(fn, reps=10):
-    """Device time per fn() call by event name (kernels, memsets, copies)
-    in a torch.profiler trace of reps calls."""
+SPIN_NAME = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+def profile_calls(fn, reps, cpu=False, tries=5, spin_cycles=10_000_000):
+    """fn() under torch.profiler (CUDA activity, and CPU with cpu=True):
+    one call before the trace, then reps calls in it, ended by a
+    synchronize, between three short spin kernels (~1 ms each) and a long
+    one (~5 ms). Returns (the device events of the traced calls, host wall
+    ms a traced call, the captures taken). Once other traces ran in the
+    process, the tracer can lose the first events of a trace (chip_smoke.py
+    once read K4 at half its time), so the short spins come first to take
+    that loss, and only the events after the last short spin that survived
+    and before the long one are kept. A capture without the long spin, with
+    no events, or in which some name's count is not a multiple of reps, is
+    taken again, up to tries times, and raises if it stays so."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    faults = []
+    for capture in range(1, tries + 1):
+        with profile(activities=activities) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(spin_cycles // 5)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / reps
+            torch.cuda._sleep(spin_cycles)
+            torch.cuda.synchronize()
+        events = device_kernels(prof)
+        spins = [e for e in events if SPIN_NAME in e.name]
+        # a short spin lasts a fifth of the long one: ~1 against ~5 ms at
+        # 1.98 GHz, and on either side of 3 ms at any clock from 0.7 GHz up
+        short = [e.time_range.end for e in spins if e.device_time < 3000]
+        long = [e.time_range.start for e in spins if e.device_time >= 3000]
+        if len(long) != 1:
+            faults.append(f"{len(short)} short and {len(long)} long spins")
+            continue
+        start = max(short, default=float("-inf"))
+        inside = [e for e in events if SPIN_NAME not in e.name
+                  and start <= e.time_range.start and e.time_range.end <= long[0]]
+        counts = collections.Counter(e.name for e in inside)
+        if inside and all(n % reps == 0 for n in counts.values()):
+            return inside, wall_ms, capture
+        odd = {name[:80]: n for name, n in counts.items() if n % reps}
+        faults.append(f"{len(short)} short spins, {len(inside)} events between the spins, "
+                      f"{len(events) - len(inside) - len(spins)} outside, odd counts {odd}")
+    raise RuntimeError(f"profile_calls: {tries} captures of {reps} calls lost events: {faults}")
+
+
+def device_times(fn, reps=10):
+    """Device time per fn() call by event name (kernels, memsets, copies)
+    in a torch.profiler trace of reps calls (``profile_calls``)."""
+    events, _, _ = profile_calls(fn, reps)
     times = {}
-    for e in device_kernels(prof):
+    for e in events:
         times[e.name[:60]] = times.get(e.name[:60], 0.0) + e.device_time / reps / 1e3
     return times
 
 
-def device_ms(fn, reps=10):
-    """Device time per fn() call: the sum of ``device_times``."""
-    return sum(device_times(fn, reps).values())
+def device_ms(fn, reps=10, spin_cycles=20_000_000):
+    """Device time per fn() call: CUDA events around reps calls queued back
+    to back behind a spin kernel (~10 ms, longer than the host takes to
+    queue them), so that the device runs them without waiting for the
+    host; the elapsed time over reps. Inputs and outputs stay on the card,
+    so a call finds them in L2 where they fit."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps=10, flush_bytes=256 << 20):
+    """Median device time of one fn() call that finds nothing in L2: before
+    each call a write of flush_bytes (five times the H100's 50 MB L2)
+    evicts what the last call left there, and a short spin kernel keeps the
+    device busy while the host queues the call; CUDA events around the call
+    alone."""
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def card() -> str:

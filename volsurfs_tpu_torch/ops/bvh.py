@@ -12,7 +12,9 @@ tests hold against JAX's.
 ``trace_all`` traces every ray against every shell. On a CUDA tensor it
 launches kernel K2 (``csrc/bvh_trace.cu``); on a CPU tensor it runs the
 plain version ``trace_all_reference``, a lockstep loop of the same steps
-over the same layout.
+over the same layout. ``trace_all_buffers`` returns what K2 writes, [k*R]
+buffers that the shading kernel K4 reads as they are; ``trace_all`` builds
+the dict of [k, R, ...] hits from them.
 """
 
 from __future__ import annotations
@@ -301,6 +303,20 @@ def trace_all(stacked: StackedBVH, rays_o, rays_d, cull=None):
     """
     if not rays_o.is_cuda:
         return trace_all_reference(stacked, rays_o, rays_d, cull)
+    t_best, tri_best, u_best, v_best = trace_all_buffers(stacked, rays_o, rays_d, cull)
+    return _hits_dict(t_best, tri_best.long(), u_best, v_best, rays_o, rays_d,
+                      stacked.node_begin.shape[0])
+
+
+def trace_all_buffers(stacked: StackedBVH, rays_o, rays_d, cull=None):
+    """``trace_all`` as K2 writes it, with nothing built around it: (t
+    float32, triangles_id int32, u float32, v float32), each [k*R] with
+    mesh m's rays at [m*R, (m+1)*R); a miss has id -1 (its t is inf, its u
+    and v 0). Arguments as for ``trace_all``."""
+    if not rays_o.is_cuda:
+        t_best, tri_best, u_best, v_best = _trace_reference_buffers(
+            stacked, rays_o, rays_d, cull, False)[0]
+        return t_best, tri_best.int(), u_best, v_best
     nodes, tris = stacked.nodes, stacked.tris
     begin, end = stacked.node_begin, stacked.node_end
     for name, x, dtype in (
@@ -342,7 +358,7 @@ def trace_all(stacked: StackedBVH, rays_o, rays_d, cull=None):
     _build.check(status, "bvh_trace")
     launches["bvh_trace"] += 1
     stacked.step_cap.launched()
-    return _hits_dict(t_best, tri_best.long(), u_best, v_best, rays_o, rays_d, k)
+    return t_best, tri_best, u_best, v_best
 
 
 def _fma(a, b, c):
@@ -397,6 +413,14 @@ def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, cull=None, return_w
     ``triangles_read``), the table bytes it needs; and the node visits of
     all cursors and of the longest one (the chain of dependent node loads
     that one kernel thread makes)."""
+    buffers, work = _trace_reference_buffers(stacked, rays_o, rays_d, cull, return_work)
+    hits = _hits_dict(*buffers, rays_o, rays_d, stacked.node_begin.shape[0])
+    return (hits, work) if return_work else hits
+
+
+def _trace_reference_buffers(stacked: StackedBVH, rays_o, rays_d, cull, return_work):
+    """The loop of ``trace_all_reference``: ((t, triangles_id int64, u, v)
+    [k*R], work or None)."""
     launches["bvh_trace_reference"] += 1
     nodes, tris = stacked.nodes, stacked.tris
     k, R = stacked.node_begin.shape[0], rays_o.shape[0]
@@ -456,15 +480,15 @@ def trace_all_reference(stacked: StackedBVH, rays_o, rays_d, cull=None, return_w
     else:
         if bool((node < end).any()):
             raise RuntimeError("trace_all_reference: cursors hit the step cap")
-    hits = _hits_dict(t_best, tri_best, u_best, v_best, rays_o, rays_d, k)
-    if return_work:
-        leaves_read = visited & (nodes[:, 7] > 0.5)  # a leaf's triangles are all tested
-        leaf_counts = nodes[:, 1].contiguous().view(torch.int32).long()
-        return hits, {"box_tests": int(box_tests), "triangle_tests": int(triangle_tests),
-                      "nodes_read": int(visited.sum()),
-                      "triangles_read": int(leaf_counts[leaves_read].sum()),
-                      "node_visits": int(visits.sum()), "max_node_visits": int(visits.max())}
-    return hits
+    buffers = (t_best, tri_best, u_best, v_best)
+    if not return_work:
+        return buffers, None
+    leaves_read = visited & (nodes[:, 7] > 0.5)  # a leaf's triangles are all tested
+    leaf_counts = nodes[:, 1].contiguous().view(torch.int32).long()
+    return buffers, {"box_tests": int(box_tests), "triangle_tests": int(triangle_tests),
+                     "nodes_read": int(visited.sum()),
+                     "triangles_read": int(leaf_counts[leaves_read].sum()),
+                     "node_visits": int(visits.sum()), "max_node_visits": int(visits.max())}
 
 
 def face_depth(verts, faces, face_ids, rays_o, rays_d):

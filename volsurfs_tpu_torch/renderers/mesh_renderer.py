@@ -2,10 +2,12 @@
 
 Counterpart of volsurfs_tpu/renderers/mesh_renderer.py's
 ``BakedMeshRenderer``: it loads a baked ``scene.json`` (meshes and SH band
-PNGs), finds every ray's closest hit on each shell (``ops/bvh.trace_all``,
-kernel K2), samples the band textures bilinearly, evaluates the spherical
-harmonics at the view direction, applies a sigmoid and composites the
-shells outer->inner in float16 (``ops/shade.shade_composite``, kernel K4).
+PNGs), finds every ray's closest hit on each shell
+(``ops/bvh.trace_all_buffers``, kernel K2), samples the band textures
+bilinearly, evaluates the spherical harmonics at the view direction,
+applies a sigmoid and composites the shells outer->inner in float16
+(``ops/shade.shade_composite_buffers``, kernel K4, which reads K2's
+buffers as they are).
 
 Every entry point traces. The JAX package draws camera frames with a
 tile-binned rasterizer instead (``renderers/raster.py``), because BVH
@@ -14,12 +16,13 @@ traversal is gather-bound on the TPU; its hits equal ``trace_all``'s. Here
 K2 and shade them with K4, so they have no candidate budget that could
 overflow, and ``overflow`` stays zero.
 
-The camera entry points (``render``, ``render_frame``,
-``render_frames_device``) cull back faces, as the JAX frame path does,
-whenever every camera centre lies outside every shell's bounding box:
-there the closest hit on a closed shell is a front face, so culling drops
-only the back faces that an open shell shows through its openings.
-``render_rays``, like JAX's, culls nothing.
+The frame entry points (``render_frame``, ``render_frames_device``) cull
+back faces, as the JAX frame path does, whenever every camera centre lies
+outside every shell's bounding box: there the closest hit on a closed
+shell is a front face, so culling drops only the back faces that an open
+shell shows through its openings. ``render`` and ``render_rays``, like
+JAX's, cull nothing, so on open shells ``render`` and ``render_frame``
+differ, as they do in JAX.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ import numpy as np
 import torch
 
 from volsurfs_tpu_torch.baking import mesh_io
+from volsurfs_tpu_torch.datasets.cameras import get_camera_rays
 from volsurfs_tpu_torch.ops import bvh as B
 from volsurfs_tpu_torch.ops.shade import (
-    DEG_NR_COEFFS, face_uv_table, make_band_textures, shade_composite,
+    DEG_NR_COEFFS, face_uv_table, make_band_textures, shade_composite_buffers,
 )
 from volsurfs_tpu_torch.utils import png
 
@@ -159,20 +163,23 @@ class BakedMeshRenderer:
     # ---- core ----------------------------------------------------------------
 
     def shade_inputs(self, hits, rays_d):
-        """The arguments of ``ops/shade.shade_composite`` (and of its plain
-        version) for ``trace_all`` hits of rays with directions rays_d."""
+        """The arguments of ``ops/shade._shade_composite_reference`` (K4's
+        plain version) for ``trace_all`` hits of rays with directions
+        rays_d; without the first, those that follow K2's buffers in
+        ``shade_composite_buffers``."""
         return (hits, self.face_uv, self.face_offsets, rays_d, self.band_textures,
                 self.ignore_alpha_flags, self.bg_color, self.sh_degree)
 
-    def shade(self, hits, rays_d):
-        """Shade and composite ``trace_all`` hits (K4 on the card)."""
-        return shade_composite(*self.shade_inputs(hits, rays_d))
-
-    def render_rays(self, rays_o, rays_d, cull=None):
+    def render_rays(self, rays_o, rays_d, cull=None, width: int = 0):
         """rays [N, 3] float32 on the renderer's device -> {"rgb" [N, 3],
         "bg_transmittance" [N, 1]} float32. cull: None, or ``cull_signs``
-        for rays that all start outside every shell (``cameras_outside``)."""
-        return self.shade(B.trace_all(self.stacked_bvh, rays_o, rays_d, cull), rays_d)
+        for rays that all start outside every shell (``cameras_outside``).
+        width: W > 0 if the rays are a row-major frame W pixels wide (K4
+        then shades pixel tiles; the result is the same)."""
+        _, tri, u, v = B.trace_all_buffers(self.stacked_bvh, rays_o, rays_d, cull)
+        return shade_composite_buffers(tri, u, v, self.face_uv, self.face_offsets, rays_d,
+                                       self.band_textures, self.ignore_alpha_flags,
+                                       self.bg_color, self.sh_degree, width)
 
     def cameras_outside(self, cameras) -> bool:
         """True iff every camera centre lies outside every mesh's bounding
@@ -194,13 +201,11 @@ class BakedMeshRenderer:
         return (torch.from_numpy(intr).to(self.device), torch.from_numpy(poses).to(self.device))
 
     def render(self, camera, chunk_size: int = 65536):
-        """Full frame, traced and shaded in chunks of rays, culled as
-        ``render_frame`` is, so that the two give one image (JAX's ``render``
-        culls nothing). Returns [H, W, 3] float32 numpy."""
-        intr, poses = self.camera_tensors([camera])
-        rays_o, rays_d = camera_rays(intr[0], poses[0], camera.width, camera.height)
-        cull = self.frame_cull([camera])
-        outs = [self.render_rays(rays_o[i:i + chunk_size], rays_d[i:i + chunk_size], cull)["rgb"]
+        """Full frame as JAX's ``render`` draws it: the rays of
+        ``datasets/cameras.get_camera_rays``, traced with no culling and
+        shaded in chunks of rays. Returns [H, W, 3] float32 numpy."""
+        rays_o, rays_d = (torch.from_numpy(x).to(self.device) for x in get_camera_rays(camera))
+        outs = [self.render_rays(rays_o[i:i + chunk_size], rays_d[i:i + chunk_size])["rgb"]
                 for i in range(0, rays_o.shape[0], chunk_size)]
         rgb = torch.cat(outs).cpu().numpy()
         return rgb.reshape(camera.height, camera.width, 3)
@@ -218,7 +223,7 @@ class BakedMeshRenderer:
         imgs = torch.empty(len(cameras), h, w, 3, dtype=torch.float32, device=self.device)
         for i in range(len(cameras)):
             rays_o, rays_d = camera_rays(intr[i], poses[i], w, h)
-            imgs[i] = self.render_rays(rays_o, rays_d, cull)["rgb"].view(h, w, 3)
+            imgs[i] = self.render_rays(rays_o, rays_d, cull, w)["rgb"].view(h, w, 3)
         return imgs, torch.zeros(3, dtype=torch.int32, device=self.device)
 
     def render_frame(self, camera):
