@@ -10,8 +10,8 @@ order other, this, this, other, each in its own process, with their logs
 in OUT_DIR. The other tree is measured with this tree's timers: its
 ``volsurfs_tpu_torch/kernel_bench.py`` is replaced by this one's and its
 chip_smoke's ``profiled`` by this one's, so that both time and profile
-alike; its kernels are its own. Prints each run's kernel, orbit and
-quality lines. Needs a CUDA card.
+alike; its kernels are its own. Prints each run's train, kernel,
+orbit and quality lines. Needs a CUDA card.
 """
 
 import os
@@ -20,8 +20,9 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ('"phase": "k4_shade"', '"phase": "baked_orbit"', '"phase": "baked_orbit_profile"',
-          '"phase": "baked_quality"', '"phase": "build"', '{"kernels"')
+PHASES = tuple('{"phase": "%s"' % p for p in (
+    "build", "train_done", "train_profile", "k4_shade", "baked_orbit",
+    "baked_orbit_profile", "baked_quality")) + ('{"kernels"',)
 
 # runs the other tree's chip_smoke.main() with this tree's profiled()
 BOOTSTRAP = """

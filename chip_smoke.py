@@ -17,12 +17,26 @@ on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/:
    reel), one 16,384-ray render chunk and a whole 256x256 frame, with times
    (inputs and timers from volsurfs_tpu_torch/kernel_bench.py, the scene
    from volsurfs_tpu_torch/datasets/sphere_scene.py);
-5. 60 train steps of 512 rays on the procedural sphere scene, the last 3
-   under torch.profiler (device-busy time, launches, idle share);
+5. 60 train steps of 512 rays on the procedural sphere scene through the
+   port's Trainer.train (MVDataset "synthetic" at 256x256, 24 train and 4
+   test cameras, config/train_config.cfg's cadences, a temporary run
+   directory): the median step time after 10 warm-up steps, host clock to
+   a torch.cuda.synchronize() in a callback;
 6. a 256x256 test frame rendered in 16384-ray chunks, its PSNR and rate,
    and one more frame under the profiler;
 7. the launches of both kernels over phases 5-6 (each must be > 0, and the
    plain versions must not have run there);
+7a. the rest of the volsurfs stage, from the trained method on: the
+   checkpoint saved and loaded into a fresh VolSurfs, whose render_camera
+   of test camera 0 must equal the trained one's bit for bit; eval_split
+   of the test split (psnr, ssim, lpips_rf); bake_textures and
+   export_scene_json at full width (80 band PNGs); the baked scene
+   reloaded through BakedMeshRenderer, whose render (unculled) of each of
+   the 4 test cameras must lie within a mean 0.15 of Trainer.render_camera,
+   and within 0.005 of it with the neural render's alpha decay off;
+   then 3 train steps (Trainer.train_iteration) under torch.profiler
+   (device-busy time, launches, idle share); the launches over phases 5-7a
+   (K1, K2 and K4 each > 0, no plain version);
 8. kernel K4 (shade and composite of the baked shells) against its plain
    version on K2's culled buffers of one frame, in pixel tiles as the
    frame path launches it: a 256x256 test camera of the committed baked
@@ -51,6 +65,10 @@ on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/:
 11. the launches of K2 and K4 over phases 9-10 in this process (each must
    be > 0, and the plain versions must not have run there).
 
+The main paths, each with the launch counts set to 0 before it and read
+after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
+begins with train_render, from one reset) and baked_render (phases 9-10).
+
 Each phase prints one JSON line. The line before the last is the kernel
 table; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; a watchdog turns a hang into a traceback and an exit
@@ -73,6 +91,7 @@ import torch  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(REPO, "config", "volsurfs", "base_5.cfg")
+TRAIN_CFG = os.path.join(REPO, "config", "train_config.cfg")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -95,6 +114,15 @@ ORBIT_RES = 800
 TRAIN_STEPS = 60
 WARMUP_STEPS = 10
 PROFILED_STEPS = 3
+# the sphere scene as the stage trains on it: 24 train and 4 test cameras
+STAGE_DATA = {"width": 256, "height": 256, "nr_train_cameras": 24, "nr_test_cameras": 4}
+# the largest mean |baked - neural| of a test camera, the bar of the JAX
+# package's bake round trip (tests/test_baker_and_renderer.py)
+BAKED_NEURAL_BAR = 0.15
+# the largest mean |baked - neural| with the neural render's alpha decay off,
+# which the baked scene does not carry: ~7x the largest sound reading on the
+# H100 (0.00072), below what a swapped SH band or a dropped row flip gives
+BAKED_NEURAL_UNDECAYED_BAR = 0.005
 
 _T0 = time.perf_counter()
 
@@ -294,54 +322,45 @@ def smoke_hyper_params():
     return hp
 
 
-def phase_train(device, shells, reel, hp, steps=TRAIN_STEPS):
-    from volsurfs_tpu_torch.datasets.tensor_reel import get_next_rays_batch
+def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS):
+    """steps train steps through Trainer.train; returns the trainer."""
     from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
     from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.params import TrainParams
+    from volsurfs_tpu_torch.training import callbacks as CB
+    from volsurfs_tpu_torch.training.trainer import Trainer
 
     t = time.perf_counter()
     method = VolSurfs(hp, shells, bg_color="white",
                       bounding_primitive=make_bounding_sphere(1.0), device=device, seed=0)
+    timer = CB.StepTimerCallback(device)
+    trainer = Trainer(method, mv, run_dir, log_every=10, seed=0,
+                      train_params=TrainParams("volsurfs", TRAIN_CFG),
+                      callbacks=CB.CallbacksGroup([timer]))
     n_params = sum(p.numel() for p in method.models.parameters())
     emit("train_setup", setup_s=time.perf_counter() - t, textures=len(method.models) * (hp.sh_degree + 1),
          params=n_params, rays_per_step=hp.training_rays_batch_size,
          warmup=hp.nr_warmup_iters, milestones=hp.lr_milestones, lr=hp.lr)
-    gen = torch.Generator(device=device).manual_seed(0)
-    losses, step_ms = [], []
 
-    def step():
-        it = len(losses)
-        t = time.perf_counter()
-        batch = get_next_rays_batch(reel, gen, hp.training_rays_batch_size,
-                                    jitter_pixels=hp.jitter_training_rays)
-        loss = float(method.train_step(batch)["loss"])
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(loss)
-        if not np.isfinite(loss):
-            raise AssertionError(f"train step {it}: loss {loss}")
-        if (it + 1) % 10 == 0:
-            emit("train", step=it + 1, loss=loss, mean_loss_last_10=float(np.mean(losses[-10:])))
+    def log(it, _, losses):
+        if it % 10 == 0:  # the timer has synchronised: reading the loss costs no wait
+            recent = timer.losses()[-10:]
+            emit("train", step=it, loss=float(losses["loss"]), mean_loss_last_10=float(recent.mean()))
 
-    # the last steps run under the profiler, after its warm-up step
-    profiled_steps = PROFILED_STEPS + 1 if device.type == "cuda" else PROFILED_STEPS
-    for _ in range(steps - profiled_steps):
-        step()
-    step_ms_unprofiled = step_ms[WARMUP_STEPS:]
-    if device.type == "cuda":
-        emit("train_profile", steps=PROFILED_STEPS, **profiled(step, PROFILED_STEPS))
-    else:
-        for _ in range(PROFILED_STEPS):
-            step()
+    t = time.perf_counter()
+    trainer.train(end_iter=steps, callback=log)
+    train_s = time.perf_counter() - t
+    losses = timer.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train: losses {losses.tolist()}")
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    emit("train_done", losses=losses, mean_first_10=first, mean_last_10=last,
-         median_step_ms=float(np.median(step_ms_unprofiled)),
-         steps_timed=len(step_ms_unprofiled),
+    emit("train_done", losses=losses.tolist(), mean_first_10=first, mean_last_10=last,
+         median_step_ms=timer.median_ms(WARMUP_STEPS), steps_timed=len(timer.step_ms) - WARMUP_STEPS,
+         train_s=train_s, iter_nr=method.iter_nr,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None)
     if not last < first:
         raise AssertionError(f"loss did not fall: first 10 {first}, last 10 {last}")
-    return method
+    return trainer
 
 
 def phase_render(device, method, rays_o, rays_d, gt, chunk):
@@ -369,6 +388,115 @@ def phase_render(device, method, rays_o, rays_d, gt, chunk):
     if hit <= 0.0:
         raise AssertionError("render: no ray hit a shell")
     return psnr
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_stage(device, trainer, hp, shells, chunk):
+    """The volsurfs stage after training (phase 7a): checkpoint round trip,
+    evaluation, the full-width bake, the reloaded scene against the neural
+    render, then the profiled train steps."""
+    from volsurfs_tpu_torch.baking import baker
+    from volsurfs_tpu_torch.datasets import sphere_scene
+    from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer
+    from volsurfs_tpu_torch.training import checkpoints
+    from volsurfs_tpu_torch.training.trainer import Trainer
+    from volsurfs_tpu_torch.utils.evaluation import psnr
+
+    method, mv, run_dir = trainer.method, trainer.mv_data, trainer.run_dir
+    test = mv["test"]
+
+    # checkpoint: save, load into a fresh method (other seed), same frame
+    t = time.perf_counter()
+    path = trainer.save_checkpoint()
+    sync(device)
+    save_s = time.perf_counter() - t
+    fresh = VolSurfs(hp, shells, bg_color="white", bounding_primitive=make_bounding_sphere(1.0),
+                     device=device, seed=1)
+    t = time.perf_counter()
+    checkpoints.load_checkpoint(trainer.ckpt_dir, fresh)
+    sync(device)
+    load_s = time.perf_counter() - t
+    reloaded = Trainer(fresh, mv, os.path.join(run_dir, "reloaded"))
+    ref = trainer.render_camera(test.cameras[0], chunk)["rgb"]
+    got = reloaded.render_camera(test.cameras[0], chunk)["rgb"]
+    result = dict(iter_nr=fresh.iter_nr, files=sorted(os.listdir(path)), bytes=dir_bytes(path),
+                  save_s=save_s, load_s=load_s, render_equal=bool(np.array_equal(got, ref)),
+                  max_abs_diff=float(np.abs(got - ref).max()))
+    emit("stage_checkpoint", **result)
+    if not result["render_equal"] or fresh.iter_nr != method.iter_nr:
+        raise AssertionError(f"checkpoint round trip differs: {result}")
+    del fresh, reloaded
+
+    t = time.perf_counter()
+    means = trainer.eval_split("test", chunk_size=chunk)
+    emit("stage_eval", split="test", cameras=len(test.cameras), seconds=time.perf_counter() - t,
+         **means)
+
+    # bake at full width into the run directory, as the baker CLI does
+    t = time.perf_counter()
+    files = sorted(f for f in os.listdir(sphere_scene.MESH_DIR) if f.endswith(".obj"))
+    baker.copy_meshes_renumbered(sphere_scene.MESH_DIR, files, run_dir)
+    stats = {}
+    meshes_info = baker.bake_textures(method, run_dir, stats=stats)
+    baker.export_scene_json(run_dir, meshes_info, mv, bg_color="white", sh_degree=hp.sh_degree)
+    bake_s = time.perf_counter() - t
+    with open(os.path.join(run_dir, "scene.json")) as f:
+        scene_keys = sorted(json.load(f))
+    emit("stage_bake", textures=len(method.models), textures_res=list(hp.textures_res),
+         sh_degree=hp.sh_degree, seconds=bake_s, scene_json_keys=scene_keys, **stats)
+    # one PNG an SH coefficient: (sh_degree + 1)^2 a shell
+    if stats["pngs"] != len(shells) * (hp.sh_degree + 1) ** 2 or "cameras" not in scene_keys:
+        raise AssertionError(f"bake: {stats}, scene.json keys {scene_keys}")
+
+    # the reloaded scene against the neural render, unculled as JAX's render
+    t = time.perf_counter()
+    renderer = BakedMeshRenderer(run_dir, device=device)
+    renderer.stacked_bvh  # the lazy BVH build, counted in the load
+    reload_s = time.perf_counter() - t
+    diffs, undecayed_diffs, between, baked_psnr, neural_psnr = [], [], [], [], []
+    decay = hp.with_alpha_decay
+    for i, cam in enumerate(test.cameras):
+        baked = renderer.render(cam)
+        neural = trainer.render_camera(cam, chunk)["rgb"].clip(0, 1)
+        if not (np.isfinite(baked).all() and baked.shape == neural.shape):
+            raise AssertionError(f"baked render of camera {i}: {baked.shape}")
+        diffs.append(float(np.abs(baked - neural).mean()))
+        # the baked scene carries no grazing-angle alpha decay: the neural
+        # render without it shows what the decay alone accounts for
+        hp.with_alpha_decay = False
+        try:
+            undecayed = trainer.render_camera(cam, chunk)["rgb"].clip(0, 1)
+        finally:
+            hp.with_alpha_decay = decay
+        undecayed_diffs.append(float(np.abs(baked - undecayed).mean()))
+        between.append(psnr(neural, baked))
+        baked_psnr.append(psnr(test.rgbs[i], baked))
+        neural_psnr.append(psnr(test.rgbs[i], neural))
+    renderer.stacked_bvh.check_step_cap()
+    result = dict(cameras=len(test.cameras), reload_s=reload_s, mean_abs_baked_neural=diffs,
+                  bar=BAKED_NEURAL_BAR, with_alpha_decay=decay,
+                  mean_abs_baked_neural_without_decay=undecayed_diffs,
+                  bar_without_decay=BAKED_NEURAL_UNDECAYED_BAR, psnr_baked_vs_neural=between,
+                  psnr_baked=baked_psnr, psnr_neural=neural_psnr)
+    emit("stage_reload", **result)
+    if max(diffs) >= BAKED_NEURAL_BAR or max(undecayed_diffs) >= BAKED_NEURAL_UNDECAYED_BAR:
+        raise AssertionError(f"baked render deviates from the neural render: {result}")
+
+    emit("train_profile", steps=PROFILED_STEPS,
+         **profiled(trainer.train_iteration, PROFILED_STEPS))
+    method.stacked_bvh.check_step_cap()
+    return dict(eval=means, bake=stats, reload=result)
 
 
 def orbit_cameras(res, n=ORBIT_FRAMES):
@@ -597,50 +725,68 @@ def main():
 
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.datasets import sphere_scene
+    from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
     from volsurfs_tpu_torch.datasets.tensor_reel import make_tensor_reel
     k1 = phase_scatter_add(device)
     shells = sphere_scene.load_shells()
-    reel = make_tensor_reel(*sphere_scene.train_split(), device=device)
+    mv = MVDataset("synthetic", "sphere", "", config=STAGE_DATA)
+    reel = make_tensor_reel(mv["train"].cameras, mv["train"].rgbs, mv["train"].masks,
+                            device=device)
     k2_shapes = phase_trace(device, shells, reel)
     k2 = k2_shapes[f"frame_5x{sphere_scene.FRAME ** 2}"]
 
     rays_o, rays_d, gt = sphere_scene.test_camera(device)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # the main path: train, then render
-    method = phase_train(device, shells, reel, smoke_hyper_params())
-    method.stacked_bvh.check_step_cap()
-    phase_render(device, method, rays_o, rays_d, gt, kb.CHUNK)
-    method.stacked_bvh.check_step_cap()
+    hp = smoke_hyper_params()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_stage_run_")
+    reset_counts()  # the main paths train_render and volsurfs_stage: train, then render
+    trainer = phase_train(device, shells, mv, hp, run_tmp.name)
+    trainer.method.stacked_bvh.check_step_cap()
+    phase_render(device, trainer.method, rays_o, rays_d, gt, kb.CHUNK)
+    trainer.method.stacked_bvh.check_step_cap()
     counts = read_counts()
     emit("train_render_launches", **counts)
-    del method
+    # the volsurfs stage goes on from the trained method, counts not reset
+    phase_stage(device, trainer, hp, shells, kb.CHUNK)
+    stage = read_counts()
+    emit("volsurfs_stage_launches", **stage)
+    del trainer
+    run_tmp.cleanup()
     torch.cuda.empty_cache()
 
     k4, baked = phase_baked(device, smi, sass)
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # launches: over the volsurfs stage (which begins with train_render) and
+    # the baked render path
     kernels = [
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
              replaces="volsurfs_tpu/ops/pallas/scatter_add.py:107",
-             launches=counts["scatter_add"], plain_launches=counts["scatter_add_reference"],
+             launches=stage["scatter_add"],
+             launches_by_path={"train_render": counts["scatter_add"],
+                               "volsurfs_stage": stage["scatter_add"]},
+             plain_launches=stage["scatter_add_reference"],
              shape="hashgrid_backward",
              registers=resources.get("scatter_add_rows_f2_kernel", {}).get("registers"),
              **{k: k1[k] for k in keys}),
         dict(name="bvh_trace", route="cuda",
              source="volsurfs_tpu_torch/csrc/bvh_trace.cu",
              replaces="volsurfs_tpu/ops/bvh.py:490",
-             launches=counts["bvh_trace"] + baked["bvh_trace"],
+             launches=stage["bvh_trace"] + baked["bvh_trace"],
              launches_by_path={"train_render": counts["bvh_trace"],
+                               "volsurfs_stage": stage["bvh_trace"],
                                "baked_render": baked["bvh_trace"]},
-             plain_launches=counts["bvh_trace_reference"] + baked["bvh_trace_reference"],
+             plain_launches=stage["bvh_trace_reference"] + baked["bvh_trace_reference"],
              shape=k2["shape"],
              registers=resources.get("bvh_trace_kernel", {}).get("registers"),
              **{k: k2[k] for k in keys}),
         dict(name="shade_composite", route="cuda",
              source="volsurfs_tpu_torch/csrc/shade.cu",
              replaces="volsurfs_tpu/renderers/mesh_renderer.py:271",
-             launches=baked["shade"], plain_launches=baked["shade_reference"],
+             launches=stage["shade"] + baked["shade"],
+             launches_by_path={"volsurfs_stage": stage["shade"], "baked_render": baked["shade"]},
+             plain_launches=stage["shade_reference"] + baked["shade_reference"],
              shape=k4["shape"],
              registers=resources.get("shade_composite_deg3_kernel", {}).get("registers"),
              sass=k4["sass"], entries_differ=k4["entries_differ"],
@@ -648,8 +794,9 @@ def main():
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:
-        if k["launches"] <= 0 or k["plain_launches"] != 0:
-            raise AssertionError(f"main path did not run {k['name']} as a kernel: {k}")
+        if (k["launches"] <= 0 or k["plain_launches"] != 0
+                or min(k["launches_by_path"].values()) <= 0):
+            raise AssertionError(f"a main path did not run {k['name']} as a kernel: {k}")
         if k["registers"] is None:
             raise AssertionError(f"ptxas reported no registers for {k['name']}: {resources}")
     faulthandler.cancel_dump_traceback_later()

@@ -295,3 +295,44 @@ def test_baked_renderer_frame_entry_points_agree(cuda):
     assert np.array_equal(imgs[1].cpu().numpy(), frame)
     assert overflow.tolist() == [0, 0, 0]
     r.stacked_bvh.check_step_cap()
+
+
+def test_volsurfs_stage_on_the_card(cuda, tmp_path):
+    """tests/test_volsurfs_e2e.py's configuration (sh_degree 1, 64^2
+    textures, 128 rays a step; tests/_stage_config.py) on the five committed
+    shells (the card has no JAX to build the test's own): 5 Trainer steps,
+    a bake, a reload. The baked render lies within a mean 0.15 of the
+    neural render on the test cameras, and the path launched K1, K2 and K4
+    and no plain version."""
+    from volsurfs_tpu_torch.baking import baker
+    from volsurfs_tpu_torch.datasets import sphere_scene
+    from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsVolSurfs
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    from _stage_config import DATA, HP
+
+    for counts in (S.launches, TB.launches, SH.launches):
+        for key in counts:
+            counts[key] = 0
+    hp = HyperParamsVolSurfs(**HP)
+    mv = MVDataset("synthetic", "sphere", "", config=DATA)
+    method = VolSurfs(hp, sphere_scene.load_shells(), bg_color="white",
+                      bounding_primitive=make_bounding_sphere(1.0), device=cuda)
+    trainer = Trainer(method, mv, str(tmp_path))
+    trainer.train(end_iter=5)
+    files = sorted(f for f in os.listdir(MESH_DIR) if f.endswith(".obj"))
+    baker.copy_meshes_renumbered(MESH_DIR, files, str(tmp_path))
+    info = baker.bake_textures(method, str(tmp_path))
+    baker.export_scene_json(str(tmp_path), info, mv, bg_color="white", sh_degree=hp.sh_degree)
+    renderer = BakedMeshRenderer(str(tmp_path), device=cuda)
+    for cam in mv["test"].cameras:
+        baked = renderer.render(cam)
+        neural = trainer.render_camera(cam)["rgb"].clip(0, 1)
+        assert np.isfinite(baked).all() and baked.shape == neural.shape
+        assert np.abs(baked - neural).mean() < 0.15
+    counts = {**S.launches, **TB.launches, **SH.launches}
+    assert counts["scatter_add"] > 0 and counts["bvh_trace"] > 0 and counts["shade"] > 0
+    assert counts["scatter_add_reference"] == counts["bvh_trace_reference"] == 0
+    assert counts["shade_reference"] == 0

@@ -207,8 +207,12 @@ def test_mvdataset_synthetic_matches_jax():
             assert (ca.width, ca.height, ca.camera_id) == (cb.width, cb.height, cb.camera_id)
         np.testing.assert_array_equal(a.rgbs, b.rgbs)
         np.testing.assert_array_equal(a.masks, b.masks)
+    # a dataset neither package loads (DTU and the blender family are
+    # ported now: tests/test_torch_datasets.py)
     with pytest.raises(NotImplementedError):
-        MVDataset("dtu", "scan24", "")
+        MVDataset("llff", "fern", "")
+    with pytest.raises(NotImplementedError):
+        JaxMVDataset("llff", "fern", "")
 
 
 def test_psnr_matches_jax():

@@ -66,6 +66,9 @@ def test_port_imports_with_jax_blocked():
         "import volsurfs_tpu_torch.renderers.mesh_renderer, volsurfs_tpu_torch.renderers.viewer\n"
         "import volsurfs_tpu_torch.datasets.mvdataset, volsurfs_tpu_torch.datasets.baked_scene\n"
         "import volsurfs_tpu_torch.utils.png, volsurfs_tpu_torch.utils.evaluation\n"
+        "import volsurfs_tpu_torch.utils.rendering, volsurfs_tpu_torch.params.params\n"
+        "import volsurfs_tpu_torch.training.trainer, volsurfs_tpu_torch.training.checkpoints\n"
+        "import volsurfs_tpu_torch.training.callbacks, volsurfs_tpu_torch.baking.baker\n"
         "print('ok')\n"
     )
     proc = subprocess.run(

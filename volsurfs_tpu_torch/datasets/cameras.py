@@ -1,6 +1,7 @@
 """Cameras and ray generation (numpy copy of volsurfs_tpu/datasets/cameras.py,
 whose ray functions use JAX). Poses are OpenCV-convention camera-to-world
-(x right, y down, z forward).
+(x right, y down, z forward); Blender/OpenGL poses are converted on load.
+Pixel jitter is drawn from a ``torch.Generator`` where JAX takes a key.
 """
 
 from __future__ import annotations
@@ -8,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -20,9 +22,55 @@ class Camera:
     height: int
     camera_id: int = 0
 
+    def get_intrinsics(self) -> np.ndarray:
+        return self.intrinsics
 
-def get_camera_rays(camera: Camera):
-    """All rays of a camera through the pixel centers, row-major over pixels.
+    def get_pose(self) -> np.ndarray:
+        return self.pose
+
+    def resize(self, subsample_factor: int) -> "Camera":
+        k = self.intrinsics.copy()
+        k[:2] /= subsample_factor
+        return Camera(
+            intrinsics=k,
+            pose=self.pose,
+            width=self.width // subsample_factor,
+            height=self.height // subsample_factor,
+            camera_id=self.camera_id,
+        )
+
+    def get_opengl_projection_matrix(self, near=0.1, far=100.0) -> np.ndarray:
+        """Projection matrix for the WebGL viewer's scene.json."""
+        fx, fy = self.intrinsics[0, 0], self.intrinsics[1, 1]
+        cx, cy = self.intrinsics[0, 2], self.intrinsics[1, 2]
+        w, h = self.width, self.height
+        proj = np.zeros((4, 4), np.float32)
+        proj[0, 0] = 2 * fx / w
+        proj[1, 1] = 2 * fy / h
+        proj[0, 2] = 2 * cx / w - 1
+        proj[1, 2] = 2 * cy / h - 1
+        proj[2, 2] = -(far + near) / (far - near)
+        proj[2, 3] = -2 * far * near / (far - near)
+        proj[3, 2] = -1.0
+        return proj
+
+    def get_opengl_matrix_world(self) -> np.ndarray:
+        """Camera-to-world in OpenGL convention (y up, z backward)."""
+        flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+        return self.pose @ flip
+
+
+def opengl_to_opencv_pose(pose_gl: np.ndarray) -> np.ndarray:
+    """Blender/OpenGL c2w (look -z) -> OpenCV c2w (look +z)."""
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(pose_gl.dtype)
+    return pose_gl @ flip
+
+
+def get_camera_rays(camera: Camera, jitter_pixels: bool = False,
+                    generator: torch.Generator | None = None):
+    """All rays of a camera, row-major over pixels: through the pixel
+    centers, or, with jitter_pixels and a generator, through a point drawn
+    uniformly in [0, 1)^2 of each pixel (on the generator's device).
 
     Returns (rays_o [H*W, 3], rays_d [H*W, 3]) as float32 numpy arrays.
     """
@@ -30,7 +78,12 @@ def get_camera_rays(camera: Camera):
     jj, ii = np.meshgrid(
         np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32), indexing="xy"
     )
-    pix = np.stack([jj.reshape(-1), ii.reshape(-1)], axis=-1) + np.float32(0.5)
+    pix = np.stack([jj.reshape(-1), ii.reshape(-1)], axis=-1)
+    if jitter_pixels and generator is not None:
+        pix = pix + torch.rand(pix.shape, generator=generator,
+                               device=generator.device).cpu().numpy()
+    else:
+        pix = pix + np.float32(0.5)
     return rays_from_pixels(
         np.asarray(camera.intrinsics, np.float32), np.asarray(camera.pose, np.float32), pix
     )

@@ -20,6 +20,14 @@ class TensorReel:
     def nr_cameras(self) -> int:
         return self.rgbs.shape[0]
 
+    @property
+    def height(self) -> int:
+        return self.rgbs.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.rgbs.shape[2]
+
 
 def make_tensor_reel(cameras, rgbs: np.ndarray, masks=None, device="cuda") -> TensorReel:
     if masks is None:
@@ -37,21 +45,27 @@ def make_tensor_reel(cameras, rgbs: np.ndarray, masks=None, device="cuda") -> Te
 
 
 def get_next_rays_batch(reel: TensorReel, generator: torch.Generator, batch_size: int,
-                        jitter_pixels: bool = True) -> dict:
+                        jitter_pixels: bool = True, nr_rays_per_pixel: int = 1) -> dict:
     """Random (camera, pixel) rays with their ground truth, made on the
-    reel's device with ``generator`` (which lives on that device).
+    reel's device with ``generator`` (which lives on that device). With
+    nr_rays_per_pixel = n > 1, batch_size // n pixels are drawn and each is
+    repeated n times in a row (supersampling groups, which the methods
+    average); every ray then has its own jitter.
 
     Returns rays_o, rays_d [B, 3], gt_rgb [B, 3], gt_mask [B, 1], camera_idx [B].
     """
     dev = reel.rgbs.device
-    _, H, W, _ = reel.rgbs.shape
-    cam_idx = torch.randint(0, reel.nr_cameras, (batch_size,), generator=generator, device=dev)
-    px = torch.randint(0, W, (batch_size,), generator=generator, device=dev)
-    py = torch.randint(0, H, (batch_size,), generator=generator, device=dev)
+    B = batch_size
+    P = B // nr_rays_per_pixel
+    cam_idx = torch.randint(0, reel.nr_cameras, (P,), generator=generator, device=dev)
+    px = torch.randint(0, reel.width, (P,), generator=generator, device=dev)
+    py = torch.randint(0, reel.height, (P,), generator=generator, device=dev)
+    if nr_rays_per_pixel > 1:
+        cam_idx, px, py = (x.repeat_interleave(nr_rays_per_pixel) for x in (cam_idx, px, py))
     if jitter_pixels:
-        sub = torch.rand((batch_size, 2), generator=generator, device=dev)
+        sub = torch.rand((B, 2), generator=generator, device=dev)
     else:
-        sub = torch.full((batch_size, 2), 0.5, device=dev)
+        sub = torch.full((B, 2), 0.5, device=dev)
     pixels = torch.stack([px.float(), py.float()], dim=-1) + sub
 
     intr = reel.intrinsics[cam_idx]

@@ -1,9 +1,10 @@
 """PNG reading and writing with the standard library (zlib) and numpy.
 
 The baked scenes store their SH band textures as 8-bit PNGs. The port reads
-them without PIL: ``read`` takes 8-bit, non-interlaced RGB and RGBA images
-with any of the five row filters, and ``write`` stores RGB or RGBA rows
-unfiltered (filter 0) at zlib level 1.
+them without PIL: ``read`` takes 8-bit, non-interlaced greyscale, greyscale
+with alpha, RGB and RGBA images with any of the five row filters (palette
+images and other bit depths raise), and ``write`` stores greyscale, RGB or
+RGBA rows unfiltered (filter 0) at zlib level 1.
 
 Undoing the filters: an image whose rows are all unfiltered (as ``write``
 makes them) is used as it is. Otherwise, since Sub, Average and Paeth
@@ -22,7 +23,9 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}  # colour type -> channels (RGB, RGBA)
+# colour type -> channels (greyscale, RGB, greyscale + alpha, RGBA)
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
 
 def _chunks(data: bytes):
@@ -73,7 +76,8 @@ def _unfilter_diagonals(raw, filters, bpp):
 
 
 def read(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced RGB or RGBA PNG as uint8 [H, W, 3 or 4]."""
+    """An 8-bit, non-interlaced greyscale, greyscale + alpha, RGB or RGBA
+    PNG as uint8 [H, W, 1, 2, 3 or 4]."""
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -87,7 +91,8 @@ def read(path: str) -> np.ndarray:
     W, H, depth, colour, compression, filtering, interlace = header
     if depth != 8 or colour not in _CHANNELS or compression or filtering or interlace:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are read (bit depth "
+            f"{path}: only 8-bit non-interlaced greyscale, RGB and RGBA PNGs (with or "
+            f"without alpha) are read (bit depth "
             f"{depth}, colour type {colour}, interlace {interlace})")
     bpp = _CHANNELS[colour]
     stride = W * bpp
@@ -108,15 +113,17 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write(path: str, img: np.ndarray) -> None:
-    """Write uint8 [H, W, 3 or 4] as an 8-bit RGB or RGBA PNG, every row
-    unfiltered (filter 0), compressed at zlib level 1 (fast; random texels
-    do not compress anyway)."""
+    """Write uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] as an 8-bit
+    greyscale, RGB or RGBA PNG, every row unfiltered (filter 0), compressed
+    at zlib level 1 (fast; random texels do not compress anyway)."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"write: expected uint8 [H, W, 3|4], got {img.dtype} {img.shape}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 3, 4):
+        raise ValueError(f"write: expected uint8 [H, W(, 1|3|4)], got {img.dtype} {img.shape}")
     H, W, C = img.shape
     rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * C)], axis=1)
-    header = struct.pack(">IIBBBBB", W, H, 8, 6 if C == 4 else 2, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", W, H, 8, _COLOUR_TYPE[C], 0, 0, 0)
     with open(path, "wb") as f:
         f.write(SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
