@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's volsurfs slice at the width of config/volsurfs/base_5.cfg
-on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/:
+on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/,
+then its surf stage at the width of config/surf/base.cfg:
 
 1. the card's name and power limit;
 2. builds the CUDA kernels (one nvcc per csrc/*.cu source, in parallel) and
@@ -63,11 +64,36 @@ on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/:
    (``chip_smoke.py --orbit-profile SCENE_DIR``) that has traced nothing
    before;
 11. the launches of K2 and K4 over phases 9-10 in this process (each must
-   be > 0, and the plain versions must not have run there).
+   be > 0, and the plain versions must not have run there);
+12. kernel K6 (the permutohedral lookup, csrc/permuto.cu) against its
+   plain version at the surf stage's shapes: a data step's 49,152 samples
+   with grads and the points' gradient (the curvature term's SDF lookup)
+   and without grads (the colour field), a sphere-init step's 30,000
+   points and an occupancy-refresh chunk of 65,536 (nothing saved for a
+   backward): rows, weights, rank codes, feats, dfeats, the backward's
+   per-corner updates and the points' gradient bit for bit, the table
+   gradient through K1 within the atomics' error; times of the forward and
+   the backward, their bounds and registers;
+13. kernel K7 (the occupied-space sampler, csrc/occupancy_sampler.cu)
+   against its plain version on a refreshed 256^3 grid at the train
+   step's 512 rays and a 16,384-ray render chunk, bit for bit, with times
+   and the bound (the distinct voxels the rays read);
+14. the surf stage: config/surf/base.cfg at full width through
+   Trainer.train on the sphere scene of phase 5, its schedule cut by one
+   factor to 100 sphere-init steps and 300 data steps (the cuts in the
+   ``surf_setup`` line): the median step of each phase, the occupancy
+   refreshes (every 50 steps) with the occupied fraction after each;
+15. the rest of the stage: the checkpoint (grid included) loaded into a
+   fresh Surf, whose render of test camera 0 must equal the trained one's
+   bit for bit; eval_split of the test split (psnr > 16 dB, the bar of
+   tests/test_surf_e2e.py); 3 data steps under the profiler; the launches
+   over phases 14-15 (K1, K6 forward and backward and K7 each > 0, no
+   plain version).
 
 The main paths, each with the launch counts set to 0 before it and read
 after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
-begins with train_render, from one reset) and baked_render (phases 9-10).
+begins with train_render, from one reset), baked_render (phases 9-10) and
+surf_stage (phases 14-15).
 
 Each phase prints one JSON line. The line before the last is the kernel
 table; the last line is {"ok": true, "device": {...}}. Any failure raises
@@ -113,6 +139,13 @@ ORBIT_RES = 800
 
 TRAIN_STEPS = 60
 WARMUP_STEPS = 10
+# the surf stage: config/surf/base.cfg, its schedule cut to 100 sphere-init
+# and 300 data steps; its test PSNR must pass tests/test_surf_e2e.py's bar
+SURF_CFG = os.path.join(REPO, "config", "surf", "base.cfg")
+SURF_SPHERE_STEPS = 100
+SURF_DATA_STEPS = 300
+SURF_PSNR_BAR = 16.0
+CHUNK_SURF = 16384  # rays of a render chunk (base.cfg's test_rays_batch_size)
 PROFILED_STEPS = 3
 # the sphere scene as the stage trains on it: 24 train and 4 test cameras
 STAGE_DATA = {"width": 256, "height": 256, "nr_train_cameras": 24, "nr_test_cameras": 4}
@@ -154,18 +187,24 @@ def profiled(fn, reps, top=5):
                 top_kernels_ms=[[n, round(v, 4)] for n, v in ranked], captures=captures)
 
 
-def reset_counts():
-    from volsurfs_tpu_torch.ops import bvh, scatter_add, shade
+def _launch_counts():
+    from volsurfs_tpu_torch.ops import bvh, permuto, samplers, scatter_add, shade
 
-    for counts in (bvh.launches, scatter_add.launches, shade.launches):
+    return (scatter_add.launches, bvh.launches, shade.launches, permuto.launches,
+            samplers.launches)
+
+
+def reset_counts():
+    for counts in _launch_counts():
         for key in counts:
             counts[key] = 0
 
 
 def read_counts():
-    from volsurfs_tpu_torch.ops import bvh, scatter_add, shade
-
-    return {**scatter_add.launches, **bvh.launches, **shade.launches}
+    out = {}
+    for counts in _launch_counts():
+        out.update(counts)
+    return out
 
 
 def phase_device():
@@ -716,6 +755,331 @@ def phase_baked(device, smi, sass):
     return k4, counts
 
 
+def _permuto_inputs(device, n, seed=0):
+    """A base-width PermutoEncoder with a table of uniform(-0.5, 0.5) rows
+    and n points in its unit cube: uniform in the ball of radius 1 (the
+    bounding sphere), 16 at the invalid samples' depth (1e10)."""
+    from volsurfs_tpu_torch.models.encodings import PermutoEncoder
+
+    rng = np.random.default_rng(seed)
+    enc = PermutoEncoder().to(device)
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(
+            rng.uniform(-0.5, 0.5, tuple(enc.table.shape)).astype(np.float32)))
+    pts = rng.standard_normal((n, 3))
+    pts *= rng.uniform(0, 1, (n, 1)) ** (1 / 3) / np.linalg.norm(pts, axis=-1, keepdims=True)
+    pts[:16] = 1e10
+    unit = (torch.from_numpy(pts.astype(np.float32)).to(device) / enc.half_sides + 1.0) / 2.0
+    return enc, unit.contiguous(), rng
+
+
+def phase_permuto(device, resources):
+    """K6 against its plain version at the surf stage's shapes: a data
+    step's 512 x 96 samples (with grads and the points' gradient, the
+    curvature term's SDF lookup; without grads, the colour field's), a
+    sphere-init step's 30,000 points and an occupancy-refresh chunk of
+    65,536 (no backward follows, so nothing is saved for one). Rows,
+    weights, rank codes, feats, dfeats, the per-corner updates and the
+    points' gradient must equal the plain version's bit for bit; the table
+    gradient through K1 lies within the atomics' summation error."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.ops import scatter_add as S
+
+    results = {}
+    # case, points, with grads, saved for a backward, the points' gradient
+    for case, n, grads, save, points in (("data_step", 49152, True, True, True),
+                                         ("data_step", 49152, False, True, False),
+                                         ("sphere_init", 30000, True, True, False),
+                                         ("refresh_chunk", 65536, False, False, False)):
+        enc, unit, rng = _permuto_inputs(device, n)
+        n, L = unit.shape[0], enc.nr_levels
+        ddiff = enc.ddiff if grads else None
+        table = enc.table.detach()
+        args = (unit, table, enc.W, enc.level_sizes, enc.level_offsets, ddiff)
+        got = P.permuto_forward(*args, save=save)
+        ref = P.permuto_forward_reference(*args, save=save)
+        differ = {name: int((a != b).sum()) for name, a, b in
+                  zip(("feats", "dfeats", "idx", "bary", "code"), got, ref) if a is not None}
+        # the rows the points touch, for the bound
+        idx = got[2] if save else P.permuto_forward(*args)[2]
+        rows_read = int(torch.unique(idx).numel())
+        nl = n * L
+        # forward: points in, the distinct rows read; feats (and dfeats with
+        # grads; rows, weights and rank codes where saved) out; ~90 flops a
+        # (point, level), 60 more for the Jacobian
+        fwd_bytes = (12 * n + 8 * rows_read
+                     + nl * (8 + (24 if grads else 0) + (16 + 16 + 1 if save else 0)))
+        fwd_flops = nl * (90 + (60 if grads else 0))
+        timed = [("fwd_", lambda: P.permuto_forward(*args, save=save),
+                  lambda: P.permuto_forward_reference(*args, save=save), fwd_bytes, fwd_flops)]
+        row = dict(points=n, grads=grads, saved=save, rows_read=rows_read)
+        if save:
+            _, _, idx, bary, code = got
+            dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32)).to(device)
+            gd = (torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32))
+                  .to(device) if grads else None)
+            bwd = (idx, bary, code, dout, ddiff, gd) + ((table, enc.W) if points else ())
+            upd, d_unit = P.permuto_backward(*bwd)
+            upd_ref, d_unit_ref = P.permuto_backward_reference(*bwd)
+            differ["updates"] = int((upd != upd_ref).sum())
+            if points:
+                differ["d_unit"] = int((d_unit != d_unit_ref).sum())
+            rows = idx.reshape(-1)
+            d_table = S.scatter_add_rows(rows, upd, enc.total_rows)
+            d_ref = S.scatter_add_rows_reference(rows, upd, enc.total_rows)
+            err = (d_table - d_ref).abs()
+            # the atomics sum a row's updates in another order: 1e-5 of
+            # their absolute sum
+            tol = 1e-5 * S.scatter_add_rows_reference(rows, upd.abs(), enc.total_rows) + 1e-6
+            row["d_table_max_abs_err"] = float(err.max())
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"K6 {case} (grads {grads}): d_table max err {float(err.max())}")
+            # backward: weights, cotangents (rank codes and the dfeats
+            # cotangent with grads) in, the updates out; ~8 flops a (point,
+            # level, corner), 15 more with grads. The points' gradient reads
+            # the rows (and rank codes), the distinct table rows and W, and
+            # writes 12 B a point; ~12 flops a (point, level, corner)
+            bwd_bytes = nl * (16 + 8 + 32 + (24 + 1 if grads else 0))
+            bwd_flops = nl * 4 * (8 + (15 if grads else 0))
+            if points:
+                bwd_bytes += (nl * (16 + (0 if grads else 1)) + 8 * rows_read + 12 * n
+                              + 4 * enc.W.numel())
+                bwd_flops += nl * 4 * 12
+            timed.append(("bwd_", lambda: P.permuto_backward(*bwd),
+                          lambda: P.permuto_backward_reference(*bwd), bwd_bytes, bwd_flops))
+        if any(differ.values()):
+            raise AssertionError(f"K6 {case} (grads {grads}): entries differ {differ}")
+        row["entries_differ"] = differ
+        for prefix, fn, plain, nbytes, flops in timed:
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+            row.update({prefix + "ms": kb.time_ms(fn), prefix + "device_ms": kb.device_ms(fn),
+                        prefix + "plain_ms": kb.time_ms(plain, reps=5, warmup=1),
+                        prefix + "bound_ms": max(t_bytes, t_ops) * 1e3,
+                        prefix + "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        row["registers"] = {k: resources.get(k, {}).get("registers")
+                            for k in ("permuto_forward_kernel", "permuto_backward_kernel")}
+        results[(case, grads)] = row
+        emit("k6_permuto", case=case, **row)
+        del enc
+    return results[("data_step", True)]
+
+
+def _refreshed_grid(device, res=256):
+    """A 256^3 grid after a refresh at the stage's start: |sdf| of a sphere
+    of radius 0.5 at the voxel centres, occupancy from the logistic density
+    at the first phase's beta (variance 0.3)."""
+    from volsurfs_tpu_torch.ops.occupancy import make_grid
+    from volsurfs_tpu_torch.utils.schedules import get_logistic_beta_from_variance
+
+    grid = make_grid(res, 2.0, sphere_roi_radius=1.0, device=device)
+    values = torch.abs(torch.linalg.norm(grid.voxel_centers(), dim=-1) - 0.5)
+    grid = grid.update_values(values)
+    return grid.update_occupancy_with_sdf(float(get_logistic_beta_from_variance(0.3)))
+
+
+def _voxels_read(grid, rays_o, rays_d, spans, nr_steps=512):
+    """The distinct voxels that the probes and the march of each (t0, t1)
+    span read (steps of zero length read none)."""
+    ids = []
+    k = torch.arange(nr_steps, dtype=torch.float32, device=rays_o.device)[None, :]
+    for t0, t1 in spans:
+        seg = (t1 - t0) / nr_steps
+        pts = rays_o[:, None] + (t0 + (k + 0.5) * seg)[..., None] * rays_d[:, None]
+        coords, inb = grid.pos_to_voxel_idx(pts.reshape(-1, 3))
+        keep = inb & (seg > 0).expand(-1, nr_steps).reshape(-1)
+        c = coords.long()[keep]
+        ids.append((c[:, 0] * grid.res + c[:, 1]) * grid.res + c[:, 2])
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def phase_occupancy_sampler(device, reel):
+    """K7 against its plain version on a refreshed 256^3 grid: the train
+    step's 512 rays (drawn from the train reel) and a 16,384-ray render
+    chunk of the test camera, clipped to the occupied probes as base.cfg
+    samples (64 a ray): z, mask, the clipped interval and the spacing bit
+    for bit."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.datasets import sphere_scene
+    from volsurfs_tpu_torch.datasets.tensor_reel import get_next_rays_batch
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops.raycast import intersect_bounding_primitive, make_bounding_sphere
+
+    grid = _refreshed_grid(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = get_next_rays_batch(reel, gen, kb.TRAIN_RAYS, jitter_pixels=True)
+    rays_o, rays_d, _ = sphere_scene.test_camera(device)
+    shapes = {f"train_{kb.TRAIN_RAYS}": (batch["rays_o"], batch["rays_d"]),
+              f"chunk_{kb.CHUNK}": (rays_o[kb.CHUNK:2 * kb.CHUNK].contiguous(),
+                                    rays_d[kb.CHUNK:2 * kb.CHUNK].contiguous())}
+    results = {}
+    for shape, (o, d) in shapes.items():
+        rc = intersect_bounding_primitive(make_bounding_sphere(1.0), o, d)
+        tn, tf = rc["t_near"].contiguous(), rc["t_far"].contiguous()
+        jitter = torch.rand(o.shape[0], 1, generator=gen, device=device)
+        args = (o, d, tn, tf, grid, jitter, 1e-4, 3, 64, 512, 512)
+        got, ref = SP.occupancy_samples(*args), SP.occupancy_samples_reference(*args)
+        differ = {name: int((a != b).sum()) for name, a, b in
+                  zip(("z", "mask", "t_near", "t_far", "const_dist"), got, ref)}
+        if any(differ.values()):
+            raise AssertionError(f"K7 {shape}: entries differ {differ}")
+        R = o.shape[0]
+        voxels = _voxels_read(grid, o, d, ((tn, tf), (got[2], got[3])))
+        nbytes = R * (12 + 12 + 4 + 4 + 4) + voxels + R * 64 * (4 + 1) + R * 12
+        flops = R * 2 * 512 * 15  # a point, its voxel and its ballot: ~15 flops
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        fn = lambda: SP.occupancy_samples(*args)  # noqa: E731
+        results[shape] = dict(
+            shape=shape, rays=R, samples=int(got[1].sum()), voxels_read=voxels,
+            entries_differ=differ, max_abs_err=0.0, ms=kb.time_ms(fn),
+            device_ms=kb.device_ms(fn),
+            plain_ms=kb.time_ms(lambda: SP.occupancy_samples_reference(*args), reps=5, warmup=1),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+        emit("k7_occupancy_sampler", **results[shape])
+    return results[f"train_{kb.TRAIN_RAYS}"]
+
+
+def surf_hyper_params():
+    """config/surf/base.cfg at its full width, its schedule cut by one
+    factor (1/50): 100 sphere-init steps (5000), warmup 60 (3000), the SDF's
+    coarse-to-fine 100 (5000), the first phase's end 2000 (100000),
+    milestones 1600 and 1800 (80000, 90000); and the run cut to
+    SURF_SPHERE_STEPS + SURF_DATA_STEPS steps. Returns (hp, the cuts)."""
+    from volsurfs_tpu_torch.params.hyper_params import get_method_hyper_params
+
+    hp = get_method_hyper_params("surf", SURF_CFG)
+    scale = SURF_SPHERE_STEPS / hp.init_phase_end_iter
+    cuts = {}
+    for name in ("init_phase_end_iter", "nr_warmup_iters", "sdf_nr_iters_for_c2f",
+                 "first_phase_end_iter"):
+        cuts[name] = [getattr(hp, name), round(getattr(hp, name) * scale)]
+        setattr(hp, name, cuts[name][1])
+    cuts["lr_milestones"] = [list(hp.lr_milestones), [round(m * scale) for m in hp.lr_milestones]]
+    hp.lr_milestones = cuts["lr_milestones"][1]
+    cuts["training_end_iter"] = [hp.training_end_iter, SURF_SPHERE_STEPS + SURF_DATA_STEPS]
+    hp.training_end_iter = cuts["training_end_iter"][1]
+    return hp, cuts
+
+
+def make_surf(hp, device, seed):
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+
+    return Surf(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=256,
+                device=device, seed=seed)
+
+
+def phase_surf_train(device, mv, run_dir):
+    """The surf stage's training through Trainer.train (phase 14): the
+    median step time of each phase, the occupancy refreshes and the
+    occupied fraction after each. Returns the trainer."""
+    from volsurfs_tpu_torch.params.params import TrainParams
+    from volsurfs_tpu_torch.training import callbacks as CB
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    hp, cuts = surf_hyper_params()
+    t = time.perf_counter()
+    method = make_surf(hp, device, seed=0)
+    timer = CB.StepTimerCallback(device)
+    trainer = Trainer(method, mv, run_dir, log_every=50, seed=0,
+                      train_params=TrainParams("surf", TRAIN_CFG),
+                      callbacks=CB.CallbacksGroup([timer]))
+    refreshes = []
+    refresh = method.update_occupancy_grid
+
+    def recorded_refresh():
+        refresh()
+        refreshes.append([method.iter_nr, float(method.grid.occupancy_fraction())])
+
+    method.update_occupancy_grid = recorded_refresh
+    emit("surf_setup", setup_s=time.perf_counter() - t, cuts=cuts,
+         params={k: sum(p.numel() for p in m.parameters()) for k, m in method.models.items()},
+         rays_per_step=hp.training_rays_batch_size, lr=hp.lr)
+    buckets = []
+    t = time.perf_counter()
+    trainer.train(callback=lambda it, m, losses: buckets.append(trainer._rays_bucket))
+    train_s = time.perf_counter() - t
+    del method.update_occupancy_grid
+    losses = timer.losses()
+    n_init = hp.init_phase_end_iter
+    init, data = losses[:n_init], losses[n_init:]
+    step_ms = np.asarray(timer.step_ms)
+    result = dict(
+        steps=len(losses), train_s=train_s,
+        sphere_init=dict(steps=len(init), first_10=float(init[:10].mean()),
+                         last_10=float(init[-10:].mean()),
+                         median_step_ms=float(np.median(step_ms[5:n_init]))),
+        data=dict(steps=len(data), first_10=float(data[:10].mean()),
+                  last_10=float(data[-10:].mean()),
+                  median_step_ms=float(np.median(step_ms[n_init + 5:]))),
+        refreshes=refreshes, rays_bucket_by_step=buckets[::25],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("surf_train", **result)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"surf: losses not finite: {losses.tolist()}")
+    if not result["sphere_init"]["last_10"] < result["sphere_init"]["first_10"] or not refreshes:
+        raise AssertionError(f"surf: the sphere-init loss did not fall or no refresh: {result}")
+    return trainer
+
+
+def phase_surf_stage(device, trainer, chunk):
+    """The rest of the surf stage (phase 15): the checkpoint round trip
+    (a fresh Surf, other seed, renders test camera 0 bit for bit alike),
+    eval_split of the test split and 3 profiled data steps."""
+    from volsurfs_tpu_torch.training import checkpoints
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    method, mv, run_dir = trainer.method, trainer.mv_data, trainer.run_dir
+    cam = mv["test"].cameras[0]
+    t = time.perf_counter()
+    path = trainer.save_checkpoint()
+    sync(device)
+    save_s = time.perf_counter() - t
+    fresh = make_surf(method.hp, device, seed=1)
+    checkpoints.load_checkpoint(trainer.ckpt_dir, fresh)
+    reloaded = Trainer(fresh, mv, os.path.join(run_dir, "reloaded"))
+    ref = trainer.render_camera(cam, chunk)["rgb"]
+    got = reloaded.render_camera(cam, chunk)["rgb"]
+    result = dict(iter_nr=fresh.iter_nr, files=sorted(os.listdir(path)), bytes=dir_bytes(path),
+                  save_s=save_s, render_equal=bool(np.array_equal(got, ref)),
+                  max_abs_diff=float(np.abs(got - ref).max()),
+                  grid_equal=bool(torch.equal(fresh.grid.occupied, method.grid.occupied)))
+    emit("surf_checkpoint", **result)
+    if not (result["render_equal"] and result["grid_equal"]) or fresh.iter_nr != method.iter_nr:
+        raise AssertionError(f"surf checkpoint round trip differs: {result}")
+    del fresh, reloaded
+
+    t = time.perf_counter()
+    means = trainer.eval_split("test", chunk_size=chunk)
+    emit("surf_eval", split="test", cameras=len(mv["test"].cameras),
+         seconds=time.perf_counter() - t, bar_psnr=SURF_PSNR_BAR, **means)
+    if not means["psnr"] > SURF_PSNR_BAR:
+        raise AssertionError(f"surf: test psnr {means['psnr']} <= {SURF_PSNR_BAR}")
+    emit("surf_train_profile", steps=PROFILED_STEPS, rays=trainer._rays_bucket,
+         **profiled(trainer.train_iteration, PROFILED_STEPS))
+    return means
+
+
+def phase_surf(device, reel, mv, resources):
+    """The surf stage (phases 12-15): K6 and K7 against their plain
+    versions, then the main path surf_stage with the counts reset."""
+    k6 = phase_permuto(device, resources)
+    k7 = phase_occupancy_sampler(device, reel)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_surf_run_")
+    reset_counts()  # the main path surf_stage: train, checkpoint, evaluate, profile
+    trainer = phase_surf_train(device, mv, run_tmp.name)
+    phase_surf_stage(device, trainer, CHUNK_SURF)
+    counts = read_counts()
+    emit("surf_stage_launches", **counts)
+    del trainer
+    run_tmp.cleanup()
+    torch.cuda.empty_cache()
+    return k6, k7, counts
+
+
 def main():
     if sys.argv[1:2] == ["--orbit-profile"]:
         return orbit_profile(sys.argv[2])
@@ -755,18 +1119,20 @@ def main():
     torch.cuda.empty_cache()
 
     k4, baked = phase_baked(device, smi, sass)
+    k6, k7, surf = phase_surf(device, reel, mv, resources)
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: over the volsurfs stage (which begins with train_render) and
-    # the baked render path
+    # launches: over the volsurfs stage (which begins with train_render), the
+    # baked render path and the surf stage
     kernels = [
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
              replaces="volsurfs_tpu/ops/pallas/scatter_add.py:107",
-             launches=stage["scatter_add"],
+             launches=stage["scatter_add"] + surf["scatter_add"],
              launches_by_path={"train_render": counts["scatter_add"],
-                               "volsurfs_stage": stage["scatter_add"]},
-             plain_launches=stage["scatter_add_reference"],
+                               "volsurfs_stage": stage["scatter_add"],
+                               "surf_stage": surf["scatter_add"]},
+             plain_launches=stage["scatter_add_reference"] + surf["scatter_add_reference"],
              shape="hashgrid_backward",
              registers=resources.get("scatter_add_rows_f2_kernel", {}).get("registers"),
              **{k: k1[k] for k in keys}),
@@ -792,6 +1158,28 @@ def main():
              sass=k4["sass"], entries_differ=k4["entries_differ"],
              **{k: k4[k] for k in keys}),
     ]
+    for kernel, side, fn in (("permuto_forward", "fwd_", "permuto_forward_kernel"),
+                             ("permuto_backward", "bwd_", "permuto_backward_kernel")):
+        count = "permuto_" + side[:-1]
+        kernels.append(dict(
+            name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/permuto.cu",
+            replaces="volsurfs_tpu/models/encodings.py:1039",
+            launches=surf[count], launches_by_path={"surf_stage": surf[count]},
+            plain_launches=surf[count + "_reference"],
+            shape="data_step_49152_with_grads_and_points_grad",
+            registers=resources.get(fn, {}).get("registers"),
+            entries_differ=k6["entries_differ"], max_abs_err=0.0,
+            **{k: k6[side + k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            library_ms=None))
+    kernels.append(dict(
+        name="occupancy_samples", route="cuda",
+        source="volsurfs_tpu_torch/csrc/occupancy_sampler.cu",
+        replaces="volsurfs_tpu/ops/samplers.py:105",
+        launches=surf["occupancy_sampler"],
+        launches_by_path={"surf_stage": surf["occupancy_sampler"]},
+        plain_launches=surf["occupancy_sampler_reference"], shape=k7["shape"],
+        registers=resources.get("occupancy_samples_kernel", {}).get("registers"),
+        entries_differ=k7["entries_differ"], **{k: k7[k] for k in keys}))
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:
         if (k["launches"] <= 0 or k["plain_launches"] != 0

@@ -28,3 +28,33 @@ HP = dict(
     use_occupancy_grid=False,
 )
 DATA = {"width": 32, "height": 32, "nr_train_cameras": 6, "nr_test_cameras": 2}
+
+# tests/test_surf_e2e.py's configuration with the permutohedral encoder in
+# place of gridhash for both fields (the port has only permutohash): 96 rays
+# a step, 16 + 8 samples a ray, 60 sphere-init steps, 220 steps, the RGB
+# colour field, a white background, an occupancy grid of 24^3 voxels
+SURF_HP = dict(
+    is_nr_training_rays_dynamic=False,
+    clip_rays_to_occupancy=False,
+    training_rays_batch_size=96,
+    max_nr_samples_per_ray=16,
+    max_nr_imp_samples_per_ray=8,
+    do_importance_sampling=True,
+    init_phase_end_iter=60,
+    first_phase_end_iter=400,
+    training_end_iter=220,
+    nr_warmup_iters=10,
+    lr=3e-3,
+    lr_milestones=[10000],
+    eikonal_weight=0.04,
+    offsurface_weight=1e-4,
+    curvature_weight=0.0,
+    geom_feat_size=16,
+    sdf_nr_iters_for_c2f=0,
+    sdf_encoding_type="permutohash",
+    rgb_pos_encoder_type="permutohash",
+    nr_samples_bg=8,
+)
+SURF_DATA = {"width": 32, "height": 32, "nr_train_cameras": 8, "nr_test_cameras": 2}
+SURF_OCCUPANCY_RES = 24
+SURF_INIT_SPHERE_RADIUS = 0.4

@@ -16,7 +16,7 @@ from volsurfs_tpu.baking.uv_atlas import compute_atlas
 from volsurfs_tpu.methods.volsurfs import VolSurfs as JVolSurfs
 from volsurfs_tpu.ops.raycast import make_bounding_sphere as j_bounding_sphere
 from volsurfs_tpu.params.hyper_params import HyperParamsVolSurfs as JHyperParams
-from volsurfs_tpu_torch.convert import volsurfs_params_from_jax
+from volsurfs_tpu_torch.convert import params_from_jax
 from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
 from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
 from volsurfs_tpu_torch.params.hyper_params import HyperParamsVolSurfs
@@ -66,7 +66,7 @@ def textured_jax_pair(seed=0, **overrides):
             tex["encoding"]["table"] = rng.uniform(-1.0, 1.0, table.shape).astype(np.float32)
     state = state.replace(params=jax.tree_util.tree_map(jax.numpy.asarray, params))
     tmethod = port_method(port_hp(**overrides))
-    for name, torch_state in volsurfs_params_from_jax(params).items():
+    for name, torch_state in params_from_jax(params).items():
         tmethod.models[name].load_state_dict(torch_state)
     return jmethod, state, tmethod
 

@@ -336,3 +336,138 @@ def test_volsurfs_stage_on_the_card(cuda, tmp_path):
     assert counts["scatter_add"] > 0 and counts["bvh_trace"] > 0 and counts["shade"] > 0
     assert counts["scatter_add_reference"] == counts["bvh_trace_reference"] == 0
     assert counts["shade_reference"] == 0
+
+
+def _permuto_inputs(device, n, seed=0):
+    """A PermutoEncoder on device with a table of uniform(-0.5, 0.5) rows,
+    and n points: uniform in the box, a few outside it, and a few at the
+    invalid samples' depth (1e10)."""
+    from volsurfs_tpu_torch.models.encodings import PermutoEncoder
+
+    rng = np.random.default_rng(seed)
+    enc = PermutoEncoder().to(device)
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(
+            rng.uniform(-0.5, 0.5, tuple(enc.table.shape)).astype(np.float32)))
+    pts = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    pts[:64] *= 1.5
+    pts[64:80] = 1e10
+    unit = (torch.from_numpy(pts).to(device) / enc.half_sides + 1.0) / 2.0
+    return enc, unit.contiguous(), rng
+
+
+@pytest.mark.parametrize("with_grad", [False, True])
+@pytest.mark.parametrize("n", [30000, 49152, 65536])
+def test_permuto_kernel_matches_plain(cuda, with_grad, n):
+    """K6 against its plain version at the sphere-init, data-step and
+    occupancy-refresh shapes: rows, weights, rank codes, feats, dfeats (with
+    and without saving for a backward), the per-corner updates and the
+    points' gradient bit for bit (the same operations in the same order, no
+    contraction); the table gradient through K1 to the atomics' summation
+    order."""
+    from volsurfs_tpu_torch.ops import permuto as P
+
+    enc, unit, rng = _permuto_inputs(cuda, n)
+    ddiff = enc.ddiff if with_grad else None
+    args = (unit, enc.table.detach(), enc.W, enc.level_sizes, enc.level_offsets, ddiff)
+    for save in (False, True):
+        got = P.permuto_forward(*args, save=save)
+        ref = P.permuto_forward_reference(*args, save=save)
+        for name, a, b in zip(("feats", "dfeats", "idx", "bary", "code"), got, ref):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert torch.equal(a, b), (name, save, int((a != b).sum()))
+    L = enc.nr_levels
+    dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32)).to(cuda)
+    gd = None
+    if with_grad:
+        gd = torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32)).to(cuda)
+    idx, bary, code = got[2], got[3], got[4]
+    bwd = (idx, bary, code, dout, ddiff, gd, enc.table.detach(), enc.W)
+    upd, d_unit = P.permuto_backward(*bwd)
+    upd_ref, d_unit_ref = P.permuto_backward_reference(*bwd)
+    assert torch.equal(upd, upd_ref)
+    assert torch.equal(d_unit, d_unit_ref)
+    upd_only, none = P.permuto_backward(*bwd[:6])
+    assert none is None and torch.equal(upd_only, upd_ref)
+    d_table = S.scatter_add_rows(idx.reshape(-1), upd, enc.total_rows)
+    d_ref = S.scatter_add_rows_reference(idx.reshape(-1), upd_ref, enc.total_rows)
+    torch.cuda.synchronize()
+    # atomics sum in another order than the plain version: 1e-5 of the
+    # absolute sum of a row's updates
+    bound = S.scatter_add_rows_reference(idx.reshape(-1), upd_ref.abs(), enc.total_rows)
+    assert bool(((d_table - d_ref).abs() <= 1e-5 * bound + 1e-7).all())
+
+
+def _refreshed_grid(device, res=256):
+    """A grid at the surf stage's shape after a refresh: |sdf| of a sphere
+    of radius 0.4, occupancy from the logistic density at beta 20."""
+    from volsurfs_tpu_torch.ops.occupancy import make_grid
+
+    grid = make_grid(res, 2.0, sphere_roi_radius=1.0, device=device)
+    centers = grid.voxel_centers()
+    grid = grid.update_values(torch.abs(torch.linalg.norm(centers, dim=-1) - 0.4))
+    return grid.update_occupancy_with_sdf(20.0)
+
+
+@pytest.mark.parametrize("nr_rays", [512, 16384])
+@pytest.mark.parametrize("clip", [False, True])
+def test_occupancy_sampler_kernel_matches_plain(cuda, nr_rays, clip):
+    """K7 against its plain version on a refreshed 256^3 grid, for rays
+    from a sphere around the scene, some missing it: z, mask, the clipped
+    interval and the spacing bit for bit."""
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops.raycast import intersect_bounding_primitive, make_bounding_sphere
+
+    rng = np.random.default_rng(nr_rays)
+    grid = _refreshed_grid(cuda)
+    o = rng.standard_normal((nr_rays, 3)).astype(np.float32)
+    o = 2.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + 0.6 * rng.standard_normal((nr_rays, 3)).astype(np.float32)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_o, rays_d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    rc = intersect_bounding_primitive(make_bounding_sphere(1.0), rays_o, rays_d)
+    jitter = torch.from_numpy(rng.uniform(0, 1, (nr_rays, 1)).astype(np.float32)).to(cuda)
+    args = (rays_o, rays_d, rc["t_near"].contiguous(), rc["t_far"].contiguous(), grid, jitter,
+            1e-4, 3, 64, 512, 512 if clip else 0)
+    got = SP.occupancy_samples(*args)
+    ref = SP.occupancy_samples_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("z", "mask", "t_near", "t_far", "const_dist"), got, ref):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    assert int(got[1].sum()) > nr_rays  # the rays that hit the sphere took samples
+
+
+def test_surf_steps_on_the_card(cuda, tmp_path):
+    """The surf configuration of tests/_stage_config.py for 64 steps (the
+    sphere-init phase and the data phase, two occupancy refreshes) through
+    Trainer.train, then a render of a test camera: finite losses and frame,
+    and the path launched K1, K6 (forward and backward) and K7 and no plain
+    version."""
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsSuRF
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    from _stage_config import SURF_DATA, SURF_HP, SURF_INIT_SPHERE_RADIUS, SURF_OCCUPANCY_RES
+
+    for counts in (S.launches, P.launches, SP.launches):
+        for key in counts:
+            counts[key] = 0
+    hp = HyperParamsSuRF(**SURF_HP)
+    mv = MVDataset("synthetic", "sphere", "", config=SURF_DATA)
+    method = Surf(hp, make_bounding_sphere(1.0), bg_color="white",
+                  init_sphere_radius=SURF_INIT_SPHERE_RADIUS, occupancy_res=SURF_OCCUPANCY_RES,
+                  device=cuda)
+    trainer = Trainer(method, mv, str(tmp_path))
+    losses = []
+    trainer.train(end_iter=64, callback=lambda it, m, l: losses.append(float(l["loss"])))
+    assert np.isfinite(losses).all() and losses[59] < losses[0]
+    out = trainer.render_camera(mv["test"].cameras[0])
+    assert out["rgb"].shape == (32, 32, 3) and np.isfinite(out["rgb"]).all()
+    counts = {**S.launches, **P.launches, **SP.launches}
+    assert min(counts["scatter_add"], counts["permuto_fwd"], counts["permuto_bwd"],
+               counts["occupancy_sampler"]) > 0, counts
+    assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts

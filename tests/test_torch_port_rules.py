@@ -15,10 +15,12 @@ from volsurfs_tpu_torch.datasets import baked_scene
 from volsurfs_tpu_torch.datasets.cameras import Camera
 from volsurfs_tpu_torch.methods import volsurfs as TV
 from volsurfs_tpu_torch.ops import bvh as TB
+from volsurfs_tpu_torch.ops import permuto as P
+from volsurfs_tpu_torch.ops import samplers as SP
 from volsurfs_tpu_torch.ops import scatter_add as S
 from volsurfs_tpu_torch.ops import shade as SH
 from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer
-from volsurfs_tpu_torch.params.hyper_params import HyperParamsVolSurfs
+from volsurfs_tpu_torch.params.hyper_params import HyperParamsSuRF, HyperParamsVolSurfs
 
 torch.set_num_threads(2)
 
@@ -69,6 +71,10 @@ def test_port_imports_with_jax_blocked():
         "import volsurfs_tpu_torch.utils.rendering, volsurfs_tpu_torch.params.params\n"
         "import volsurfs_tpu_torch.training.trainer, volsurfs_tpu_torch.training.checkpoints\n"
         "import volsurfs_tpu_torch.training.callbacks, volsurfs_tpu_torch.baking.baker\n"
+        "import volsurfs_tpu_torch.methods.surf, volsurfs_tpu_torch.models.fields\n"
+        "import volsurfs_tpu_torch.models.field_utils, volsurfs_tpu_torch.ops.permuto\n"
+        "import volsurfs_tpu_torch.ops.samplers, volsurfs_tpu_torch.ops.volume_rendering\n"
+        "import volsurfs_tpu_torch.ops.occupancy, volsurfs_tpu_torch.ops.samples\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -144,3 +150,39 @@ def test_cpu_rays_take_the_plain_shading(tmp_path):
     assert not imgs.is_cuda and imgs.shape == (1, 8, 8, 3) and overflow.tolist() == [0, 0, 0]
     assert SH.launches == {"shade": 0, "shade_reference": 2}
     assert TB.launches == {"bvh_trace": 0, "bvh_trace_reference": 2}
+
+
+def test_surf_without_device_needs_cuda(monkeypatch):
+    """Surf's default device is CUDA; without it the constructor raises
+    instead of training on the CPU."""
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = HyperParamsSuRF(appearance_predict_sh_coeffs=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Surf(hp, make_bounding_sphere(1.0))
+
+
+def test_cpu_tensors_take_the_plain_permuto_and_sampler():
+    """K6 (forward, and the backward's updates) and K7 on CPU tensors run
+    their plain versions."""
+    from volsurfs_tpu_torch.models.encodings import PermutoEncoder
+    from volsurfs_tpu_torch.ops.occupancy import make_grid
+
+    for counts in (P.launches, SP.launches, S.launches):
+        for key in counts:
+            counts[key] = 0
+    enc = PermutoEncoder()
+    feats, dfeats, _ = enc(torch.rand(8, 3) - 0.5, with_grads=True)
+    (feats.sum() + dfeats.sum()).backward()
+    grid = make_grid(8, 2.0, sphere_roi_radius=1.0)
+    rays_o = torch.tensor([[0.0, 0.0, -2.0]])
+    z, mask, _, _, _ = SP.occupancy_samples(
+        rays_o, torch.tensor([[0.0, 0.0, 1.0]]), torch.ones(1, 1), torch.full((1, 1), 3.0), grid,
+        torch.zeros(1, 1), 1e-4, 1, 16, 64, 64)
+    assert bool(mask.all()) and z.shape == (1, 16)
+    assert P.launches == {"permuto_fwd": 0, "permuto_fwd_reference": 1,
+                          "permuto_bwd": 0, "permuto_bwd_reference": 1}
+    assert SP.launches == {"occupancy_sampler": 0, "occupancy_sampler_reference": 1}
+    assert S.launches == {"scatter_add": 0, "scatter_add_reference": 1}

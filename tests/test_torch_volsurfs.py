@@ -12,7 +12,7 @@ import torch
 
 from __graft_entry__ import _tiny_volsurfs
 from volsurfs_tpu.models import encodings as JE
-from volsurfs_tpu_torch.convert import volsurfs_params_from_jax
+from volsurfs_tpu_torch.convert import params_from_jax
 from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
 from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
 from volsurfs_tpu_torch.params.hyper_params import HyperParamsVolSurfs
@@ -96,7 +96,7 @@ def test_loss_and_gradients_match_jax(pair):
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-5, rtol=0)
 
-    for name, ref_state in volsurfs_params_from_jax(_to_numpy(ref_grads)).items():
+    for name, ref_state in params_from_jax(_to_numpy(ref_grads)).items():
         params = dict(tmethod.models[name].named_parameters())
         for key, ref_g in ref_state.items():
             g = params[key].grad
@@ -129,18 +129,18 @@ def test_three_train_steps_match_jax(pair):
     each alpha table (2,490 to 3,150 of them) are held."""
     jmethod, jstate, _, batch = pair
     tmethod = _torch_method(jmethod, jstate)
-    init = volsurfs_params_from_jax(_to_numpy(jstate.params))
+    init = params_from_jax(_to_numpy(jstate.params))
     state = jstate
-    first_moments = [volsurfs_params_from_jax(_to_numpy(state.opt_state[0].mu))]
+    first_moments = [params_from_jax(_to_numpy(state.opt_state[0].mu))]
     for step in range(3):
         with jax.disable_jit():
             state, ref = jmethod.train_step(state, _jbatch(batch))
-        first_moments.append(volsurfs_params_from_jax(_to_numpy(state.opt_state[0].mu)))
+        first_moments.append(params_from_jax(_to_numpy(state.opt_state[0].mu)))
         out = tmethod.train_step(_tbatch(batch))
         np.testing.assert_allclose(
             out["loss"].item(), float(ref["loss"]), atol=1e-5, rtol=0, err_msg=f"step {step}"
         )
-    for name, ref_state in volsurfs_params_from_jax(_to_numpy(state.params)).items():
+    for name, ref_state in params_from_jax(_to_numpy(state.params)).items():
         got = tmethod.models[name].state_dict()
         for key, ref_p in ref_state.items():
             ref_p = ref_p.numpy()
@@ -196,7 +196,7 @@ def _torch_method(jmethod, jstate):
         hp, meshes, bg_color="white", bounding_primitive=make_bounding_sphere(1.0),
         device="cpu",
     )
-    for name, state in volsurfs_params_from_jax(_to_numpy(jstate.params)).items():
+    for name, state in params_from_jax(_to_numpy(jstate.params)).items():
         tmethod.models[name].load_state_dict(state)
     return tmethod
 

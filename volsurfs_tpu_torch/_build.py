@@ -36,8 +36,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    # the trace and shade kernels must round as separate IEEE products and
-    # sums, as their plain versions do (see csrc/bvh_trace.cu, csrc/shade.cu)
+    # the kernels must round as separate IEEE products and sums, as their
+    # plain versions do (see csrc/bvh_trace.cu, csrc/shade.cu, csrc/permuto.cu,
+    # csrc/occupancy_sampler.cu)
     "-fmad=false",
 ]
 GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
@@ -45,12 +46,20 @@ GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signatures of each source's launchers: source -> {name: (restype, argtypes)}
 _KERNEL_SIGNATURES = {
     "scatter_add.cu": {"vs_scatter_add_rows": (_I, [_P, _P, _P, _LL, _I, _LL, _P])},
     "bvh_trace.cu": {
         "vs_bvh_trace": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P]),
+    },
+    "permuto.cu": {
+        "vs_permuto_forward": (_I, [_P] * 11 + [_LL, _I, _P]),
+        "vs_permuto_backward": (_I, [_P] * 10 + [_LL, _I, _P]),
+    },
+    "occupancy_sampler.cu": {
+        "vs_occupancy_samples": (_I, [_P] * 11 + [_F, _F, _F, _I, _I, _I, _I, _F, _I, _LL, _P]),
     },
     "shade.cu": {
         "vs_shade_composite": (_I, [_P] * 10 + [_I, _I, _LL, _I, _P, _P, _P]),
@@ -265,6 +274,15 @@ def sass_counts(lib_path: str | None = None) -> dict:
         result[name] = {**_class_counts(ops), "loop": _class_counts(loop),
                         "by_opcode": dict(ops.most_common())}
     return result
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless t is a contiguous tensor of dtype and shape on device,
+    as a kernel's launcher takes it."""
+    if (t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != tuple(shape)
+            or t.device != device):
+        raise ValueError(f"{name}: expected a contiguous {dtype} {tuple(shape)} tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def check(status: int, what: str) -> None:

@@ -1,11 +1,13 @@
-"""Carry parameters of a JAX ``VolSurfs`` over to the port.
+"""Carry parameters of a JAX ``Surf`` or ``VolSurfs`` over to the port.
 
-``volsurfs_params_from_jax`` takes ``TrainState.params`` of the JAX method
-as a nested dict of numpy arrays ({"rgb_0": {"params": {...}}, ...}) and
-returns one state dict per port module (``rgb_{i}``, ``alpha_{i}``), ready
-for ``VolSurfs.models[name].load_state_dict``. Flax ``Dense`` kernels are
+``params_from_jax`` takes ``TrainState.params`` of the JAX method as a
+nested dict of numpy arrays ({"sdf": {"params": {...}}, "rgb": ...};
+{"rgb_0": ..., "alpha_0": ...}) and returns one state dict per port module,
+ready for ``method.models[name].load_state_dict``. Flax ``Dense`` kernels are
 [in, out] and torch ``Linear`` weights [out, in], so they are transposed;
-hash-table rows keep their order.
+hash-table rows keep their order. Flax's automatic submodule names become
+the port's attribute names (``PermutoEncoder_0`` -> ``encoder``, ``MLP_0``
+-> ``mlp``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,13 @@ def _flatten(tree, prefix=""):
             yield name, value
 
 
+_SUBMODULES = {"PermutoEncoder_0": "encoder", "MLP_0": "mlp"}
+
+
 def _torch_name(flax_name: str) -> str:
     """neural_textures_0.network.dense_1.kernel ->
-    neural_textures.0.network.dense_1.weight"""
+    neural_textures.0.network.dense_1.weight; MLP_0.dense_0.kernel ->
+    mlp.dense_0.weight"""
     parts = []
     for part in flax_name.split("."):
         if part.startswith("neural_textures_"):
@@ -33,7 +39,7 @@ def _torch_name(flax_name: str) -> str:
         elif part == "kernel":
             parts.append("weight")
         else:
-            parts.append(part)
+            parts.append(_SUBMODULES.get(part, part))
     return ".".join(parts)
 
 
@@ -49,6 +55,6 @@ def module_state_from_flax(flax_params: dict) -> dict:
     return state
 
 
-def volsurfs_params_from_jax(params_np: dict) -> dict:
+def params_from_jax(params_np: dict) -> dict:
     """{"rgb_0": flax params, ...} -> {"rgb_0": torch state dict, ...}."""
     return {name: module_state_from_flax(sub) for name, sub in params_np.items()}

@@ -1,5 +1,5 @@
-"""Method utilities: optimizer and chunked frame rendering (counterpart of
-volsurfs_tpu/methods/base.py)."""
+"""Method utilities: gradient norms, optimizer and chunked frame rendering
+(counterpart of volsurfs_tpu/methods/base.py)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,18 @@ from typing import Callable
 import torch
 
 from volsurfs_tpu_torch.utils.schedules import make_lr_schedule
+
+
+def grad_norms(models) -> dict:
+    """{"grad_norm/<name>": L2 norm of the module's gradients} of a
+    ModuleDict, as 0-d tensors (modules without gradients give 0)."""
+    out = {}
+    for name, module in models.items():
+        norms = [torch.linalg.vector_norm(p.grad.float()) for p in module.parameters()
+                 if p.grad is not None]
+        out[f"grad_norm/{name}"] = (torch.linalg.vector_norm(torch.stack(norms)) if norms
+                                    else torch.zeros(()))
+    return out
 
 
 def make_optimizer(hp, params, warmup_start_iter: int = 0):

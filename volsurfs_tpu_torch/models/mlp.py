@@ -1,5 +1,6 @@
-"""Linear + activation stack (counterpart of volsurfs_tpu/models/mlp.py::MLP;
-``LipshitzMLP`` waits for the surf slice)."""
+"""Linear + activation stack (counterpart of volsurfs_tpu/models/mlp.py::MLP,
+with its Jacobian tangents; ``LipshitzMLP`` waits for ROADMAP.md Queue 1
+item 5's ``RGB`` field)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,17 @@ _ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "relu": F.relu,
 }
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def _derivatives(activation: str, z):
+    """d act / dz at z, as a differentiable expression (the surf losses
+    differentiate the tangents again)."""
+    if activation == "relu":
+        return (z > 0).to(z.dtype)
+    th = torch.tanh(_SQRT_2_OVER_PI * (z + 0.044715 * z ** 3))
+    return 0.5 * (1.0 + th) + 0.5 * z * (1.0 - th * th) * _SQRT_2_OVER_PI * (
+        1.0 + 3.0 * 0.044715 * z * z)
 
 
 def lecun_normal_(weight, generator=None):
@@ -40,6 +52,7 @@ class MLP(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        self.activation_name = activation
         self.activation = _ACTIVATIONS[activation]
         self.last_layer_linear = last_layer_linear
         self.compute_dtype = None if dtype is None else getattr(torch, dtype)
@@ -53,7 +66,13 @@ class MLP(nn.Module):
             self.add_module(f"dense_{i}", layer)
             dim = out
 
-    def forward(self, x):
+    def forward(self, x, tangents=None):
+        """x [..., D] -> [..., out]. With tangents [K, ..., D] (K Jacobian
+        rows, K leading) also returns their images [K, ..., out]: each layer
+        maps them by W t (JAX's (W t + b) - b, which rounds otherwise, agrees
+        within float32 rounding) and the activation by its derivative."""
+        if tangents is not None:
+            return self._forward_with_tangents(x, tangents)
         for i in range(self.nr_layers):
             layer = getattr(self, f"dense_{i}")
             if self.compute_dtype is None:
@@ -64,3 +83,16 @@ class MLP(nn.Module):
             if not (i == self.nr_layers - 1 and self.last_layer_linear):
                 x = self.activation(x)
         return x if self.compute_dtype is None else x.float()
+
+    def _forward_with_tangents(self, x, t):
+        if self.compute_dtype is not None:
+            raise NotImplementedError("MLP tangents run in float32 only")
+        for i in range(self.nr_layers):
+            layer = getattr(self, f"dense_{i}")
+            z = layer(x)
+            dz = F.linear(t, layer.weight)
+            if i == self.nr_layers - 1 and self.last_layer_linear:
+                x, t = z, dz
+            else:
+                x, t = self.activation(z), dz * _derivatives(self.activation_name, z)
+        return x, t

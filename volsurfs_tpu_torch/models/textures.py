@@ -25,20 +25,14 @@ from torch import nn
 from volsurfs_tpu_torch.models.encodings import _level_layout, hash_lookup
 from volsurfs_tpu_torch.models.mlp import MLP
 from volsurfs_tpu_torch.ops.sh import sh_eval
+from volsurfs_tpu_torch.utils.math import MASK32, mul_u32
 
 _PRIMES_2D = (1, 2654435761)
-_MASK32 = 0xFFFFFFFF
 
 
 def round_ste(x):
     """Round with a straight-through gradient."""
     return x + (torch.round(x) - x).detach()
-
-
-def _mul_u32(a, prime: int):
-    """(a * prime) mod 2^32 for int64 a in [0, 2^32), without int64 overflow."""
-    lo, hi = prime & 0xFFFF, prime >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
 
 
 class HashGrid2D(nn.Module):
@@ -96,7 +90,7 @@ class HashGrid2D(nn.Module):
             ox, oy = corner & 1, (corner >> 1) & 1
             cx = floor[..., 0] + ox
             cy = floor[..., 1] + oy
-            h = _mul_u32(cx & _MASK32, _PRIMES_2D[0]) ^ _mul_u32(cy & _MASK32, _PRIMES_2D[1])
+            h = mul_u32(cx & MASK32, _PRIMES_2D[0]) ^ mul_u32(cy & MASK32, _PRIMES_2D[1])
             hashed = h % self.sizes_t[None, :]
             side_max = torch.clamp(direct, min=1) - 1
             lin = torch.minimum(torch.clamp(cx, min=0), side_max) + direct * torch.minimum(

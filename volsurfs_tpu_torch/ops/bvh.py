@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from volsurfs_tpu_torch import _build
+from volsurfs_tpu_torch.utils.math import fma32
 
 LEAF_TRIS = 4  # triangles per leaf (padded); K2 tests at most this many
 
@@ -361,12 +362,6 @@ def trace_all_buffers(stacked: StackedBVH, rays_o, rays_d, cull=None):
     return t_best, tri_best, u_best, v_best
 
 
-def _fma(a, b, c):
-    """fma(a, b, c) in float32, through float64: the product of two float32
-    values is exact there, and rounding the float64 sum to float32 equals
-    the fma's single rounding but for rare double-rounding ties."""
-    return (a.double() * b.double() + c.double()).float()
-
 
 def _moller_trumbore(tris, rays_o, rays_d, cull_sign=None, eps=1e-9):
     """tris [B, L, 9] as (v0, e1, e2); rays [B, 3]; cull_sign None or [B]
@@ -380,19 +375,19 @@ def _moller_trumbore(tris, rays_o, rays_d, cull_sign=None, eps=1e-9):
     e2 = [tris[..., 6 + a] for a in range(3)]
     o = [rays_o[:, None, a] for a in range(3)]
     d = [rays_d[:, None, a] for a in range(3)]
-    px = _fma(d[1], e2[2], -(d[2] * e2[1]))
-    py = _fma(d[2], e2[0], -(d[0] * e2[2]))
-    pz = _fma(d[0], e2[1], -(d[1] * e2[0]))
-    det = _fma(e1[2], pz, _fma(e1[1], py, e1[0] * px))
+    px = fma32(d[1], e2[2], -(d[2] * e2[1]))
+    py = fma32(d[2], e2[0], -(d[0] * e2[2]))
+    pz = fma32(d[0], e2[1], -(d[1] * e2[0]))
+    det = fma32(e1[2], pz, fma32(e1[1], py, e1[0] * px))
     det_ok = torch.abs(det) > eps
     inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
     tx, ty, tz = o[0] - v0[0], o[1] - v0[1], o[2] - v0[2]
-    u = _fma(tz, pz, _fma(ty, py, tx * px)) * inv_det
-    qx = _fma(ty, e1[2], -(tz * e1[1]))
-    qy = _fma(tz, e1[0], -(tx * e1[2]))
-    qz = _fma(tx, e1[1], -(ty * e1[0]))
-    v = _fma(d[2], qz, _fma(d[1], qy, d[0] * qx)) * inv_det
-    t = _fma(e2[2], qz, _fma(e2[1], qy, e2[0] * qx)) * inv_det
+    u = fma32(tz, pz, fma32(ty, py, tx * px)) * inv_det
+    qx = fma32(ty, e1[2], -(tz * e1[1]))
+    qy = fma32(tz, e1[0], -(tx * e1[2]))
+    qz = fma32(tx, e1[1], -(ty * e1[0]))
+    v = fma32(d[2], qz, fma32(d[1], qy, d[0] * qx)) * inv_det
+    t = fma32(e2[2], qz, fma32(e2[1], qy, e2[0] * qx)) * inv_det
     hit = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-6)
     if cull_sign is not None:
         cs = cull_sign[:, None]

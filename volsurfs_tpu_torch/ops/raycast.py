@@ -1,5 +1,5 @@
-"""Bounding sphere and ray intersection (counterpart of
-volsurfs_tpu/ops/raycast.py; the bounding box waits for the surf slice)."""
+"""Bounding sphere and box: ray intersection and random points inside
+(counterpart of volsurfs_tpu/ops/raycast.py)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,61 @@ class BoundingSphere:
         p_near = rays_o + t_near[:, None] * rays_d
         p_far = rays_o + t_far[:, None] * rays_d
         return is_hit, t_near, t_far, p_near, p_far
+
+    def points_from_draws(self, normals, uniforms):
+        """Points inside the sphere from normal draws [N, 3] (the direction)
+        and uniform draws [N, 1] in [0, 1) (the radius, as u^(1/3))."""
+        dirs = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
+        r = self.radius * uniforms ** (1.0 / 3.0)
+        return self.center.to(normals.device)[None, :] + dirs * r
+
+    def get_random_points_inside(self, generator: torch.Generator, nr_points: int):
+        """nr_points uniform points inside the sphere, on the generator's
+        device."""
+        normals = torch.randn(nr_points, 3, generator=generator, device=generator.device)
+        uniforms = torch.rand(nr_points, 1, generator=generator, device=generator.device)
+        return self.points_from_draws(normals, uniforms)
+
+
+@dataclasses.dataclass
+class BoundingBox:
+    center: torch.Tensor  # [3]
+    sides: torch.Tensor  # [3] full side lengths
+
+    def get_radius(self) -> float:
+        """Radius of the circumscribed sphere."""
+        return float(0.5 * torch.linalg.norm(self.sides))
+
+    def get_center(self):
+        return self.center
+
+    def intersect(self, rays_o, rays_d):
+        """Slab test; rays starting inside get t_near = 0."""
+        half = 0.5 * self.sides.to(rays_o.device)[None, :]
+        center = self.center.to(rays_o.device)[None, :]
+        lo, hi = center - half, center + half
+        inv_d = 1.0 / torch.where(torch.abs(rays_d) < 1e-12, 1e-12, rays_d)
+        t_lo = (lo - rays_o) * inv_d
+        t_hi = (hi - rays_o) * inv_d
+        t_min = torch.amax(torch.minimum(t_lo, t_hi), dim=-1)
+        t_max = torch.amin(torch.maximum(t_lo, t_hi), dim=-1)
+        is_hit = (t_max >= t_min) & (t_max > 0.0)
+        t_near = torch.where(is_hit, torch.clamp(t_min, min=0.0), 0.0)
+        t_far = torch.where(is_hit, torch.clamp(t_max, min=0.0), 0.0)
+        p_near = rays_o + t_near[:, None] * rays_d
+        p_far = rays_o + t_far[:, None] * rays_d
+        return is_hit, t_near, t_far, p_near, p_far
+
+    def get_random_points_inside(self, generator: torch.Generator, nr_points: int):
+        u = torch.rand(nr_points, 3, generator=generator, device=generator.device) - 0.5
+        return self.center.to(u.device)[None, :] + u * self.sides.to(u.device)[None, :]
+
+
+def make_bounding_box(sides, center=(0.0, 0.0, 0.0)) -> BoundingBox:
+    return BoundingBox(
+        center=torch.tensor(center, dtype=torch.float32),
+        sides=torch.broadcast_to(torch.as_tensor(sides, dtype=torch.float32), (3,)).clone(),
+    )
 
 
 def make_bounding_sphere(radius: float, center=(0.0, 0.0, 0.0)) -> BoundingSphere:

@@ -1,7 +1,7 @@
 """Hyper-parameters, loadable from the hjson configs under ``config/``.
 
 Counterpart of volsurfs_tpu/params/hyper_params.py, with the base class and
-the volsurfs method's class (the methods ported so far), including their
+the surf and volsurfs methods' classes (the methods ported so far), including their
 validation and coupling rules. Defaults are the
 reference's defaults; any field present under ``hyper_params`` in a config
 file overrides the default.
@@ -106,6 +106,34 @@ class HyperParams:
 
 
 @dataclasses.dataclass
+class HyperParamsSuRF(HyperParams):
+    # geometry (reference hyper_params.py:195-264)
+    sdf_mlp_layers_dims: List[int] = dataclasses.field(default_factory=lambda: [32, 32])
+    sdf_mlp_output_dims: int = 1
+    sdf_encoding_type: str = "permutohash"
+    # "autodiff": the encoder's analytic Jacobian carried through the MLP;
+    # "finite_diff": the reference's 4-point forward difference
+    sdf_grads_mode: str = "autodiff"
+    init_phase_end_iter: int = 4000
+    sdf_nr_iters_for_c2f: int = 10000
+    first_phase_variance_start_value: float = 0.3
+    first_phase_variance_end_value: float = 0.8
+    first_phase_end_iter: int = 35000
+    reduce_curv_start_iter: Optional[int] = None
+    reduce_curv_end_iter: Optional[int] = None
+    eikonal_weight: float = 0.0
+    curvature_weight: float = 0.0
+    lipshitz_weight: float = 0.0
+    offsurface_weight: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.sdf_grads_mode in ("autodiff", "finite_diff"), (
+            f"sdf_grads_mode must be 'autodiff' or 'finite_diff', got {self.sdf_grads_mode!r}"
+        )
+
+
+@dataclasses.dataclass
 class HyperParamsVolSurfs(HyperParams):
     # mesh-shell appearance (reference hyper_params.py:381-479)
     meshes_indices: Optional[List[int]] = None
@@ -145,7 +173,7 @@ class HyperParamsVolSurfs(HyperParams):
 
 def get_method_hyper_params(method_name: str, cfg_path: str):
     """Hyper-parameters of a method from a config file."""
-    cls = {"volsurfs": HyperParamsVolSurfs}.get(method_name)
+    cls = {"surf": HyperParamsSuRF, "volsurfs": HyperParamsVolSurfs}.get(method_name)
     if cls is None:
         raise ValueError(f"method {method_name!r} is not ported to torch yet")
     return cls.from_cfg(cfg_path)

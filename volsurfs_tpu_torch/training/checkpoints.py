@@ -1,10 +1,12 @@
-"""Checkpoints of a ``VolSurfs`` run (counterpart of
+"""Checkpoints of a ``Surf`` or ``VolSurfs`` run (counterpart of
 volsurfs_tpu/training/checkpoints.py), in the JAX package's layout:
 ``<ckpt_dir>/<iter:07d>/models/`` holds one ``{name}.pt`` state dict per
-module (``rgb_i``, ``alpha_i``) and ``train_state.pt`` with the optimizer,
-the learning-rate scheduler, ``iter_nr`` and the state of the trainer's
-batch generator, so that a resumed run draws the same rays and takes the
-same steps as one that never stopped.
+module (``sdf``, ``rgb``; ``rgb_i``, ``alpha_i``) and ``train_state.pt``
+with the optimizer, the learning-rate scheduler, ``iter_nr``, the state of
+the trainer's batch generator and, where the method has them, its own
+generator's state and its occupancy grid (values, occupancy, ROI,
+extent), so that a resumed run draws the same rays and takes the same steps
+as one that never stopped.
 
 ``load_jax_params`` carries the parameters of a JAX checkpoint
 (``{name}.msgpack``, as ``flax.serialization.to_bytes`` writes them) into
@@ -21,7 +23,8 @@ import struct
 import numpy as np
 import torch
 
-from volsurfs_tpu_torch.convert import volsurfs_params_from_jax
+from volsurfs_tpu_torch.convert import params_from_jax
+from volsurfs_tpu_torch.ops.occupancy import OccupancyGrid
 
 TRAIN_STATE = "train_state.pt"
 
@@ -46,6 +49,12 @@ def save_checkpoint(ckpt_dir: str, method, batch_generator: torch.Generator | No
     }
     if batch_generator is not None:
         aux["batch_generator"] = batch_generator.get_state()
+    if getattr(method, "generator", None) is not None:
+        aux["method_generator"] = method.generator.get_state()
+    grid = getattr(method, "grid", None)
+    if grid is not None:
+        aux["grid"] = {"values": grid.values.cpu(), "occupancy": grid.occupancy.cpu(),
+                       "roi": grid.roi.cpu(), "extent": torch.tensor(grid.extent)}
     torch.save(aux, os.path.join(out, TRAIN_STATE))
 
     if not keep_previous:
@@ -92,6 +101,12 @@ def load_checkpoint(ckpt_dir: str, method, batch_generator: torch.Generator | No
     method.iter_nr = int(aux["iter_nr"])
     if batch_generator is not None and "batch_generator" in aux:
         batch_generator.set_state(aux["batch_generator"])
+    if "method_generator" in aux:
+        method.generator.set_state(aux["method_generator"])
+    if "grid" in aux:
+        g, dev = aux["grid"], method.device
+        method.grid = OccupancyGrid(g["values"].to(dev), g["occupancy"].to(dev),
+                                    g["roi"].to(dev), tuple(g["extent"].tolist()))
     return method
 
 
@@ -206,15 +221,16 @@ def read_flax_msgpack(path: str):
 
 
 def load_jax_params(ckpt_dir: str, method, iter_nr: int | None = None):
-    """Load the parameters of a JAX volsurfs checkpoint
-    (``<ckpt_dir>/<iter:07d>/models/{rgb_i,alpha_i}.msgpack``; the latest
-    iteration if iter_nr is None) into method's modules through
-    ``convert.volsurfs_params_from_jax``. Only parameters are carried: the
-    optimizer, the scheduler and ``iter_nr`` stay as they are (a fresh
-    method starts its schedule at 0). Returns method."""
+    """Load the parameters of a JAX surf or volsurfs checkpoint
+    (``<ckpt_dir>/<iter:07d>/models/{name}.msgpack`` for each of the
+    method's modules; the latest iteration if iter_nr is None) into
+    method's modules through ``convert.params_from_jax``. Only parameters
+    are carried: the optimizer, the scheduler, the grid and ``iter_nr`` stay
+    as they are (a fresh method starts its schedule at 0). Returns
+    method."""
     src = _iter_dir(ckpt_dir, _resolve_iter(ckpt_dir, iter_nr))
     params = {name: read_flax_msgpack(os.path.join(src, f"{name}.msgpack"))
               for name in method.models}
-    for name, state in volsurfs_params_from_jax(params).items():
+    for name, state in params_from_jax(params).items():
         method.models[name].load_state_dict(state)
     return method

@@ -11,13 +11,14 @@ method's device from ``self.generator``, a ``torch.Generator`` seeded with
 Losses stay on the device: the loop reads them every ``log_every`` steps,
 and the callbacks at their own cadences.
 
-Only ``volsurfs`` is ported; the other methods raise ``NotImplementedError``
-naming their ROADMAP.md Queue 1 item. Not ported, and not needed by
-volsurfs: the TPU compile-retry wrapper (nothing is compiled here), data
-parallelism over a device mesh (``--data_parallel``, Queue 1 item 9), the
-distillation mix, the occupancy-grid refresh (volsurfs has no grid) and the
-profiler hook. As in JAX, the dynamic ray count acts only when the losses
-carry ``nr_samples_total``, which volsurfs' do not.
+``surf`` and ``volsurfs`` are ported; the other methods raise
+``NotImplementedError`` naming their ROADMAP.md Queue 1 item. A method with
+an occupancy grid (surf) has it refreshed every ``update_occupancy_every``
+steps, before the step, as in JAX. As in JAX, the dynamic ray count acts
+only when the losses carry ``nr_samples_total`` (surf's do, volsurfs' do
+not). Not ported: the TPU compile-retry wrapper (nothing is compiled here),
+data parallelism over a device mesh (``--data_parallel``, Queue 1 item 9),
+the distillation mix and the profiler hook.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from volsurfs_tpu_torch.utils.evaluation import PerSceneEvaluator
 
 # methods of the JAX package that the port does not have yet, and the
 # ROADMAP.md Queue 1 item that ports each
-NOT_PORTED = {"surf": 5, "offsets_surfs": 6, "nerf": 8}
+NOT_PORTED = {"offsets_surfs": 6, "nerf": 8}
 METHODS = ("surf", "nerf", "offsets_surfs", "volsurfs")
 
 
@@ -51,13 +52,18 @@ def require_ported(method_name: str):
         raise NotImplementedError(
             f"method {method_name!r} is not ported to torch yet "
             f"(ROADMAP.md Queue 1 item {NOT_PORTED[method_name]})")
-    if method_name != "volsurfs":
+    if method_name not in ("surf", "volsurfs"):
         raise ValueError(f"unknown method {method_name}")
 
 
 def make_method(method_name, hp, bounding_primitive, bg_color, seed: int = 0,
-                device="cuda", **method_kwargs):
+                device="cuda", occupancy_res: int = 256, **method_kwargs):
     require_ported(method_name)
+    if method_name == "surf":
+        from volsurfs_tpu_torch.methods.surf import Surf
+
+        return Surf(hp, bounding_primitive, bg_color=bg_color, occupancy_res=occupancy_res,
+                    device=device, seed=seed, **method_kwargs)
     from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
 
     return VolSurfs(hp, bg_color=bg_color, bounding_primitive=bounding_primitive,
@@ -70,6 +76,7 @@ class Trainer:
         method,
         mv_data: MVDataset,
         run_dir: str,
+        update_occupancy_every: int = 50,
         log_every: int = 100,
         seed: int = 0,
         train_params=None,
@@ -79,6 +86,7 @@ class Trainer:
         self.method = method
         self.mv_data = mv_data
         self.run_dir = run_dir
+        self.update_occupancy_every = update_occupancy_every
         self.log_every = log_every
         self.train_params = train_params
         self.callbacks = callbacks
@@ -162,6 +170,9 @@ class Trainer:
         while it < end_iter:
             if self.callbacks is not None:
                 self.callbacks.iter_started(iter_nr=it)
+            if (getattr(self.method, "grid", None) is not None
+                    and it % self.update_occupancy_every == 0):
+                self.method.update_occupancy_grid()
             losses = self.train_iteration()
             it = int(self.method.iter_nr)
             self._adjust_ray_bucket(losses, it)
@@ -273,6 +284,7 @@ def main(argv=None):
     parser.add_argument("--train_iters", type=int, default=None)
     parser.add_argument("--lr", type=float, default=None)
     parser.add_argument("--subsample_factor", type=int, default=None)
+    parser.add_argument("--occupancy_res", type=int, default=256)
     parser.add_argument("--continue_training", action="store_true")
     parser.add_argument("--data_parallel", action="store_true",
                         help="not ported (ROADMAP.md Queue 1 item 9)")
@@ -322,12 +334,16 @@ def main(argv=None):
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         json.dump({k: str(v) for k, v in vars(args).items()}, f, indent=2)
 
-    if args.meshes_path is None:
-        raise SystemExit("volsurfs requires --meshes_path with .obj shells")
-    _, meshes = load_shells(args.meshes_path, hp)
+    method_kwargs = {}
+    if args.method == "volsurfs":
+        if args.meshes_path is None:
+            raise SystemExit("volsurfs requires --meshes_path with .obj shells")
+        method_kwargs["meshes"] = load_shells(args.meshes_path, hp)[1]
+    else:
+        method_kwargs["occupancy_res"] = args.occupancy_res
     method = make_method(args.method, hp, make_bounding_sphere(mv_data.scene_radius),
                          mv_data.bg_color or data_params.bg_color, seed=args.seed,
-                         device=device, meshes=meshes)
+                         device=device, **method_kwargs)
     trainer = Trainer(method, mv_data, run_dir, seed=args.seed, train_params=train_params)
     if args.continue_training:
         trainer.load_checkpoint()

@@ -4,8 +4,19 @@ from __future__ import annotations
 
 import torch
 
+from volsurfs_tpu_torch.utils.math import safe_norm
+
 
 def loss_l1(gt, pred, mask=None):
     if mask is not None:
         return torch.mean(torch.abs(gt - pred) * mask)
     return torch.mean(torch.abs(gt - pred))
+
+
+def eikonal_loss(sdf_gradients, distance_scale: float = 1.0):
+    return torch.mean((safe_norm(sdf_gradients, dim=-1) - distance_scale) ** 2)
+
+
+def offsurface_loss(sdf):
+    """exp penalty on near-zero sdf at random points."""
+    return torch.mean(torch.exp(-1e2 * torch.abs(sdf)))

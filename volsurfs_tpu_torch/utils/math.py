@@ -10,9 +10,40 @@ def safe_norm(x, dim: int = -1, keepdim: bool = False, eps: float = 1e-12):
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim) + eps)
 
 
+def safe_normalize(x, dim: int = -1, eps: float = 1e-12):
+    return x / safe_norm(x, dim=dim, keepdim=True, eps=eps)
+
+
+def fma32(a, b, c):
+    """fma(a, b, c) of float32 tensors, through float64: the product of two
+    float32 values is exact there, and rounding the float64 sum to float32
+    equals the fma's single rounding but for rare double-rounding ties."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+MASK32 = 0xFFFFFFFF
+
+
+def mul_u32(a, prime: int):
+    """(a * prime) mod 2^32 for int64 a in [0, 2^32), without int64 overflow."""
+    lo, hi = prime & 0xFFFF, prime >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
+
+
 def take_rev(x, dim: int):
     """Reverse along a (tiny) axis."""
     return torch.flip(x, dims=(dim,))
+
+
+def small_cumsum(x, dim: int):
+    """Cumulative sum along a tiny axis, as a chain of additions."""
+    slices = torch.unbind(x, dim=dim)
+    acc = slices[0]
+    outs = [acc]
+    for s in slices[1:]:
+        acc = acc + s
+        outs.append(acc)
+    return torch.stack(outs, dim=dim)
 
 
 def small_cumprod(x, dim: int):

@@ -1,6 +1,32 @@
-"""Learning-rate schedule (counterpart of volsurfs_tpu/utils/schedules.py)."""
+"""Schedules: map_range_val, the logistic beta of a variance and the
+learning-rate schedule (counterpart of volsurfs_tpu/utils/schedules.py).
+
+The scalar schedules round as JAX's traced float32 scalars do (numpy
+float32 arithmetic in the same order, returned as numpy float32), but for
+the exp of the logistic beta.
+"""
 
 from __future__ import annotations
+
+import numpy as np
+
+
+def map_range_val(x, in_start, in_end, out_start, out_end):
+    """x clamped to [in_start, in_end] and mapped linearly onto [out_start,
+    out_end]; a degenerate range gives out_end."""
+    x = min(max(x, in_start), in_end)
+    if in_start >= in_end:
+        return np.float32(out_end)
+    return (np.float32(out_end - out_start) * np.float32(x - in_start)
+            / np.float32(in_end - in_start) + np.float32(out_start))
+
+
+def get_logistic_beta_from_variance(variance):
+    """clip(exp(10 variance), 1e-6, 1e6), the exp rounded once from float64
+    (XLA's float32 exp is not correctly rounded: the two differ by an ulp
+    at ~1 in 10 arguments)."""
+    x = np.float64(np.float32(variance) * np.float32(10.0))
+    return np.float32(np.clip(np.float32(np.exp(x)), np.float32(1e-6), np.float32(1e6)))
 
 
 def make_lr_schedule(
