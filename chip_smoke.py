@@ -66,14 +66,15 @@ then its surf stage at the width of config/surf/base.cfg:
 11. the launches of K2 and K4 over phases 9-10 in this process (each must
    be > 0, and the plain versions must not have run there);
 12. kernel K6 (the permutohedral lookup, csrc/permuto.cu) against its
-   plain version at the surf stage's shapes: a data step's 49,152 samples
+   plain versions at the surf stage's shapes: a data step's 49,152 samples
    with grads and the points' gradient (the curvature term's SDF lookup)
    and without grads (the colour field), a sphere-init step's 30,000
-   points and an occupancy-refresh chunk of 65,536 (nothing saved for a
-   backward): rows, weights, rank codes, feats, dfeats, the backward's
-   per-corner updates and the points' gradient bit for bit, the table
-   gradient through K1 within the atomics' error; times of the forward and
-   the backward, their bounds and registers;
+   points and an occupancy-refresh chunk of 65,536 (no backward): the
+   forward's feats and dfeats bit for bit, the fused backward's points'
+   gradient bit for bit and its table gradient within the atomics' error;
+   times of the forward and the backward, their bounds and registers; at
+   the curvature shape also K1 on the per-corner updates (the design the
+   fused backward replaced) beside index_add_;
 13. kernel K7 (the occupied-space sampler, csrc/occupancy_sampler.cu)
    against its plain version on a refreshed 256^3 grid at the train
    step's 512 rays and a 16,384-ray render chunk, bit for bit, with times
@@ -87,7 +88,7 @@ then its surf stage at the width of config/surf/base.cfg:
    fresh Surf, whose render of test camera 0 must equal the trained one's
    bit for bit; eval_split of the test split (psnr > 16 dB, the bar of
    tests/test_surf_e2e.py); 3 data steps under the profiler; the launches
-   over phases 14-15 (K1, K6 forward and backward and K7 each > 0, no
+   over phases 14-15 (K6 forward and backward and K7 each > 0, K1 0, no
    plain version).
 
 The main paths, each with the launch counts set to 0 before it and read
@@ -165,6 +166,10 @@ def emit(phase, **fields):
           flush=True)
 
 
+# kernel families whose device time and launches a profile reports apart
+WATCHED = ("permuto", "scatter_add", "Memset")
+
+
 def profiled(fn, reps, top=5):
     """fn() run under torch.profiler (CPU and CUDA activity): one call
     before the trace, then reps traced calls (kernel_bench.profile_calls).
@@ -172,8 +177,9 @@ def profiled(fn, reps, top=5):
     device-busy ms (the sum of kernel times; one stream, so kernels do not
     overlap), kernel launches, the device's idle share of the wall time,
     the top kernels with the most device time (all of them if top is
-    None), and the captures taken. Raises if the tracer lost events in
-    every capture."""
+    None), the device ms and launches of each WATCHED family (events whose
+    name holds it), and the captures taken. Raises if the tracer lost
+    events in every capture."""
     from volsurfs_tpu_torch.kernel_bench import profile_calls
 
     kernels, wall_ms, captures = profile_calls(fn, reps, cpu=True)
@@ -182,9 +188,14 @@ def profiled(fn, reps, top=5):
     for e in kernels:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time / 1e3 / reps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    watched = {}
+    for family in WATCHED:
+        events = [e for e in kernels if family in e.name]
+        watched[family] = [sum(e.device_time for e in events) / 1e3 / reps, len(events) / reps]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernels=len(kernels) / reps,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                top_kernels_ms=[[n, round(v, 4)] for n, v in ranked], captures=captures)
+                top_kernels_ms=[[n, round(v, 4)] for n, v in ranked],
+                watched_ms_launches=watched, captures=captures)
 
 
 def _launch_counts():
@@ -755,114 +766,125 @@ def phase_baked(device, smi, sass):
     return k4, counts
 
 
-def _permuto_inputs(device, n, seed=0):
-    """A base-width PermutoEncoder with a table of uniform(-0.5, 0.5) rows
-    and n points in its unit cube: uniform in the ball of radius 1 (the
-    bounding sphere), 16 at the invalid samples' depth (1e10)."""
-    from volsurfs_tpu_torch.models.encodings import PermutoEncoder
+def _permuto_backward_cost(n, L, rows_read, total_rows, grads, points):
+    """Bytes and operations of the fused backward: the points, the
+    cotangents, the gradient's memset and one more 8-byte write of each
+    distinct row its updates touch; with the points' gradient the distinct
+    table rows read and 12 B a point out. ~90 flops a (point, level) to
+    recompute the simplex, ~8 a (point, level, corner) for an update, 15
+    more with grads, 12 more for the points' gradient."""
+    nl = n * L
+    nbytes = 12 * n + nl * (8 + (24 if grads else 0)) + 8 * total_rows + 8 * rows_read
+    flops = nl * 90 + nl * 4 * (8 + (15 if grads else 0))
+    if points:
+        nbytes += 8 * rows_read + 12 * n
+        flops += nl * 4 * 12
+    return nbytes, flops
 
-    rng = np.random.default_rng(seed)
-    enc = PermutoEncoder().to(device)
-    with torch.no_grad():
-        enc.table.copy_(torch.from_numpy(
-            rng.uniform(-0.5, 0.5, tuple(enc.table.shape)).astype(np.float32)))
-    pts = rng.standard_normal((n, 3))
-    pts *= rng.uniform(0, 1, (n, 1)) ** (1 / 3) / np.linalg.norm(pts, axis=-1, keepdims=True)
-    pts[:16] = 1e10
-    unit = (torch.from_numpy(pts.astype(np.float32)).to(device) / enc.half_sides + 1.0) / 2.0
-    return enc, unit.contiguous(), rng
+
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_permuto(device, resources):
-    """K6 against its plain version at the surf stage's shapes: a data
+    """K6 against its plain versions at the surf stage's shapes: a data
     step's 512 x 96 samples (with grads and the points' gradient, the
     curvature term's SDF lookup; without grads, the colour field's), a
     sphere-init step's 30,000 points and an occupancy-refresh chunk of
-    65,536 (no backward follows, so nothing is saved for one). Rows,
-    weights, rank codes, feats, dfeats, the per-corner updates and the
-    points' gradient must equal the plain version's bit for bit; the table
-    gradient through K1 lies within the atomics' summation error."""
+    65,536 (no backward follows). The forward's feats and dfeats equal its
+    plain version's bit for bit; the fused backward's points' gradient too,
+    and its table gradient lies within the atomics' summation error of
+    permuto_backward_reference + scatter_add_rows_reference. At the
+    curvature shape also K1 on the per-corner updates (the design the fused
+    backward replaced) beside index_add_."""
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import permuto as P
     from volsurfs_tpu_torch.ops import scatter_add as S
 
     results = {}
-    # case, points, with grads, saved for a backward, the points' gradient
-    for case, n, grads, save, points in (("data_step", 49152, True, True, True),
-                                         ("data_step", 49152, False, True, False),
-                                         ("sphere_init", 30000, True, True, False),
-                                         ("refresh_chunk", 65536, False, False, False)):
-        enc, unit, rng = _permuto_inputs(device, n)
-        n, L = unit.shape[0], enc.nr_levels
+    # case, points, with grads, a backward follows, the points' gradient
+    for case, n, grads, bwd, points in (("data_step", 49152, True, True, True),
+                                        ("data_step", 49152, False, True, False),
+                                        ("sphere_init", 30000, True, True, False),
+                                        ("refresh_chunk", 65536, False, False, False)):
+        enc, unit, rng = kb.k6_inputs(device, n)
+        n, L, R = unit.shape[0], enc.nr_levels, enc.total_rows
         ddiff = enc.ddiff if grads else None
         table = enc.table.detach()
         args = (unit, table, enc.W, enc.level_sizes, enc.level_offsets, ddiff)
-        got = P.permuto_forward(*args, save=save)
-        ref = P.permuto_forward_reference(*args, save=save)
+        ref = P.permuto_forward_reference(*args)
+        got = P.permuto_forward(*args)
         differ = {name: int((a != b).sum()) for name, a, b in
-                  zip(("feats", "dfeats", "idx", "bary", "code"), got, ref) if a is not None}
-        # the rows the points touch, for the bound
-        idx = got[2] if save else P.permuto_forward(*args)[2]
-        rows_read = int(torch.unique(idx).numel())
+                  zip(("feats", "dfeats"), got, ref[:2]) if a is not None}
+        idx, bary, code = ref[2:]
+        rows_read = int(torch.unique(idx).numel())  # the rows the points touch, for the bounds
         nl = n * L
         # forward: points in, the distinct rows read; feats (and dfeats with
-        # grads; rows, weights and rank codes where saved) out; ~90 flops a
-        # (point, level), 60 more for the Jacobian
-        fwd_bytes = (12 * n + 8 * rows_read
-                     + nl * (8 + (24 if grads else 0) + (16 + 16 + 1 if save else 0)))
+        # grads) out; ~90 flops a (point, level), 60 more for the Jacobian
+        fwd_bytes = 12 * n + 8 * rows_read + nl * (8 + (24 if grads else 0))
         fwd_flops = nl * (90 + (60 if grads else 0))
-        timed = [("fwd_", lambda: P.permuto_forward(*args, save=save),
-                  lambda: P.permuto_forward_reference(*args, save=save), fwd_bytes, fwd_flops)]
-        row = dict(points=n, grads=grads, saved=save, rows_read=rows_read)
-        if save:
-            _, _, idx, bary, code = got
+        timed = [("fwd_", lambda: P.permuto_forward(*args),
+                  lambda: P.permuto_forward_reference(*args, save=False),
+                  _bound(fwd_bytes, fwd_flops))]
+        row = dict(points=n, grads=grads, rows_read=rows_read)
+        if bwd:
             dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32)).to(device)
             gd = (torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32))
                   .to(device) if grads else None)
-            bwd = (idx, bary, code, dout, ddiff, gd) + ((table, enc.W) if points else ())
-            upd, d_unit = P.permuto_backward(*bwd)
-            upd_ref, d_unit_ref = P.permuto_backward_reference(*bwd)
-            differ["updates"] = int((upd != upd_ref).sum())
-            if points:
-                differ["d_unit"] = int((d_unit != d_unit_ref).sum())
+            bargs = (unit, table, enc.W, enc.level_sizes, enc.level_offsets, dout, ddiff, gd)
+            d_table, d_unit = P.permuto_backward(*bargs, want_unit=points)
+            d_ref, d_unit_ref = P.permuto_backward_fused_reference(*bargs, want_unit=points)
+            upd, _ = P.permuto_backward_reference(idx, bary, code, dout, ddiff, gd)
             rows = idx.reshape(-1)
-            d_table = S.scatter_add_rows(rows, upd, enc.total_rows)
-            d_ref = S.scatter_add_rows_reference(rows, upd, enc.total_rows)
             err = (d_table - d_ref).abs()
             # the atomics sum a row's updates in another order: 1e-5 of
             # their absolute sum
-            tol = 1e-5 * S.scatter_add_rows_reference(rows, upd.abs(), enc.total_rows) + 1e-6
+            tol = 1e-5 * S.scatter_add_rows_reference(rows, upd.abs(), R) + 1e-6
             row["d_table_max_abs_err"] = float(err.max())
             if not bool((err <= tol).all()):
-                raise AssertionError(f"K6 {case} (grads {grads}): d_table max err {float(err.max())}")
-            # backward: weights, cotangents (rank codes and the dfeats
-            # cotangent with grads) in, the updates out; ~8 flops a (point,
-            # level, corner), 15 more with grads. The points' gradient reads
-            # the rows (and rank codes), the distinct table rows and W, and
-            # writes 12 B a point; ~12 flops a (point, level, corner)
-            bwd_bytes = nl * (16 + 8 + 32 + (24 + 1 if grads else 0))
-            bwd_flops = nl * 4 * (8 + (15 if grads else 0))
+                raise AssertionError(f"K6 {case} (grads {grads}): d_table err {float(err.max())}")
             if points:
-                bwd_bytes += (nl * (16 + (0 if grads else 1)) + 8 * rows_read + 12 * n
-                              + 4 * enc.W.numel())
-                bwd_flops += nl * 4 * 12
-            timed.append(("bwd_", lambda: P.permuto_backward(*bwd),
-                          lambda: P.permuto_backward_reference(*bwd), bwd_bytes, bwd_flops))
+                differ["d_unit"] = int((d_unit != d_unit_ref).sum())
+            timed.append(("bwd_", lambda: P.permuto_backward(*bargs, want_unit=points),
+                          lambda: P.permuto_backward_fused_reference(*bargs, want_unit=points),
+                          _bound(*_permuto_backward_cost(n, L, rows_read, R, grads, points))))
         if any(differ.values()):
             raise AssertionError(f"K6 {case} (grads {grads}): entries differ {differ}")
         row["entries_differ"] = differ
-        for prefix, fn, plain, nbytes, flops in timed:
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        for prefix, fn, plain, (bound_ms, bound_by) in timed:
             row.update({prefix + "ms": kb.time_ms(fn), prefix + "device_ms": kb.device_ms(fn),
                         prefix + "plain_ms": kb.time_ms(plain, reps=5, warmup=1),
-                        prefix + "bound_ms": max(t_bytes, t_ops) * 1e3,
-                        prefix + "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-        row["registers"] = {k: resources.get(k, {}).get("registers")
-                            for k in ("permuto_forward_kernel", "permuto_backward_kernel")}
+                        prefix + "bound_ms": bound_ms, prefix + "bound_by": bound_by})
+        if points:
+            row["k1_surf_shape"] = _k1_at_the_surf_shape(idx.reshape(-1), upd, R)
+        row["registers"] = {k: v.get("registers") for k, v in resources.items()
+                            if k.startswith("permuto_")}
         results[(case, grads)] = row
         emit("k6_permuto", case=case, **row)
         del enc
     return results[("data_step", True)]
+
+
+def _k1_at_the_surf_shape(rows, upd, nr_rows):
+    """K1 on the curvature lookup's per-corner updates, the scatter of the
+    design the fused backward replaced (4,718,592 updates into 3,898,240
+    rows), with its plain version and index_add_."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import scatter_add as S
+
+    m = rows.shape[0]
+    k1 = {"updates": m, "rows": nr_rows}
+    for prefix, fn in (("", lambda: S.scatter_add_rows(rows, upd, nr_rows)),
+                       ("library_", lambda: torch.zeros(nr_rows, 2, device=upd.device)
+                        .index_add_(0, rows, upd))):  # yardstick only: the port never calls it
+        k1[prefix + "ms"] = kb.time_ms(fn)
+        k1[prefix + "device_ms"] = kb.device_ms(fn)
+    k1["plain_ms"] = kb.time_ms(lambda: S.scatter_add_rows_reference(rows, upd, nr_rows), reps=5,
+                                warmup=1)
+    # K1's bound, as phase 3 counts it: rows and updates read, table written
+    k1["bound_ms"], k1["bound_by"] = _bound(4 * m + 8 * m + 8 * nr_rows, 2 * m)
+    return k1
 
 
 def _refreshed_grid(device, res=256):
@@ -1123,15 +1145,17 @@ def main():
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: over the volsurfs stage (which begins with train_render), the
-    # baked render path and the surf stage
+    # baked render path and the surf stage. K1 is off the surf path: K6's
+    # backward accumulates the table's gradient itself
+    if surf["scatter_add"] != 0:
+        raise AssertionError(f"the surf stage launched K1 {surf['scatter_add']} times")
     kernels = [
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
              replaces="volsurfs_tpu/ops/pallas/scatter_add.py:107",
-             launches=stage["scatter_add"] + surf["scatter_add"],
+             launches=stage["scatter_add"],
              launches_by_path={"train_render": counts["scatter_add"],
-                               "volsurfs_stage": stage["scatter_add"],
-                               "surf_stage": surf["scatter_add"]},
+                               "volsurfs_stage": stage["scatter_add"]},
              plain_launches=stage["scatter_add_reference"] + surf["scatter_add_reference"],
              shape="hashgrid_backward",
              registers=resources.get("scatter_add_rows_f2_kernel", {}).get("registers"),
@@ -1158,17 +1182,20 @@ def main():
              sass=k4["sass"], entries_differ=k4["entries_differ"],
              **{k: k4[k] for k in keys}),
     ]
-    for kernel, side, fn in (("permuto_forward", "fwd_", "permuto_forward_kernel"),
-                             ("permuto_backward", "bwd_", "permuto_backward_kernel")):
+    for kernel, side, fn in (("permuto_forward", "fwd_", "permuto_forward_grads_kernel"),
+                             ("permuto_backward", "bwd_", "permuto_backward_grads_points_kernel")):
         count = "permuto_" + side[:-1]
         kernels.append(dict(
             name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/permuto.cu",
             replaces="volsurfs_tpu/models/encodings.py:1039",
             launches=surf[count], launches_by_path={"surf_stage": surf[count]},
             plain_launches=surf[count + "_reference"],
-            shape="data_step_49152_with_grads_and_points_grad",
+            shape="data_step_49152_with_grads_and_points_grad", kernel=fn,
             registers=resources.get(fn, {}).get("registers"),
-            entries_differ=k6["entries_differ"], max_abs_err=0.0,
+            entries_differ=k6["entries_differ"],
+            # the forward and the points' gradient bit for bit; the table's
+            # gradient to the atomics' summation order
+            max_abs_err=0.0 if side == "fwd_" else k6["d_table_max_abs_err"],
             **{k: k6[side + k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             library_ms=None))
     kernels.append(dict(

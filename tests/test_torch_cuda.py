@@ -21,6 +21,7 @@ from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer, camera
 from volsurfs_tpu_torch.renderers.viewer import OrbitCamera
 
 from _baked_uvs import edge_uvs
+from _permuto_points import kinds_of_points
 
 torch.set_num_threads(2)
 
@@ -338,65 +339,141 @@ def test_volsurfs_stage_on_the_card(cuda, tmp_path):
     assert counts["shade_reference"] == 0
 
 
-def _permuto_inputs(device, n, seed=0):
+def _permuto_inputs(device, n, seed=0, kind=None, **encoder):
     """A PermutoEncoder on device with a table of uniform(-0.5, 0.5) rows,
     and n points: uniform in the box, a few outside it, and a few at the
-    invalid samples' depth (1e10)."""
+    invalid samples' depth (1e10); or with ``kind`` about n points of that
+    kind (``_permuto_points.kinds_of_points``)."""
     from volsurfs_tpu_torch.models.encodings import PermutoEncoder
 
     rng = np.random.default_rng(seed)
-    enc = PermutoEncoder().to(device)
+    enc = PermutoEncoder(**encoder).to(device)
     with torch.no_grad():
         enc.table.copy_(torch.from_numpy(
             rng.uniform(-0.5, 0.5, tuple(enc.table.shape)).astype(np.float32)))
-    pts = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
-    pts[:64] *= 1.5
-    pts[64:80] = 1e10
+    if kind is None:
+        pts = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+        pts[:64] *= 1.5
+        pts[64:80] = 1e10
+    else:
+        pts = kinds_of_points(rng, kind, n)
     unit = (torch.from_numpy(pts).to(device) / enc.half_sides + 1.0) / 2.0
     return enc, unit.contiguous(), rng
+
+
+def _check_permuto_forward(enc, unit, with_grad):
+    """The forward kernel against its plain version: feats and dfeats bit
+    for bit. Returns the plain version's rows, weights and rank codes."""
+    from volsurfs_tpu_torch.ops import permuto as P
+
+    args = (unit, enc.table.detach(), enc.W, enc.level_sizes, enc.level_offsets,
+            enc.ddiff if with_grad else None)
+    got = P.permuto_forward(*args)
+    ref = P.permuto_forward_reference(*args)
+    for name, a, b in zip(("feats", "dfeats"), got, ref[:2]):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), (name, int((a != b).sum()))
+    return ref[2:]
+
+
+def _check_permuto_backward(enc, unit, rng, with_grad, plain_rows, masked=None):
+    """The fused backward kernel (rows and weights recomputed from the
+    points) against its plain version: the points' gradient bit for bit
+    (the same sums in the same order); the table gradient within 1e-5 of
+    the absolute sum of each row's updates (the atomics sum them in another
+    order). plain_rows: the plain forward's (idx, bary, code)."""
+    from volsurfs_tpu_torch.ops import permuto as P
+
+    n, L = unit.shape[0], enc.nr_levels
+    ddiff = enc.ddiff if with_grad else None
+    table = enc.table.detach()
+    dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32)).to(unit.device)
+    gd = None
+    if with_grad:
+        gd = torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32)).to(
+            unit.device)
+    if masked is not None:  # the cotangents a loss gives samples it masks
+        dout[masked] = 0.0
+        if gd is not None:
+            gd[:, masked] = 0.0
+    args = (unit, table, enc.W, enc.level_sizes, enc.level_offsets, dout, ddiff, gd)
+    idx, bary, code = plain_rows
+    upd, d_unit_ref = P.permuto_backward_reference(idx, bary, code, dout, ddiff, gd, table, enc.W)
+    d_ref = S.scatter_add_rows_reference(idx.reshape(-1), upd, enc.total_rows)
+    bound = S.scatter_add_rows_reference(idx.reshape(-1), upd.abs(), enc.total_rows)
+    got = P.permuto_backward(*args, want_unit=True)
+    table_only, none = P.permuto_backward(*args)
+    none_table, unit_only = P.permuto_backward(*args, want_table=False, want_unit=True)
+    torch.cuda.synchronize()
+    assert none is None and none_table is None
+    assert torch.equal(got[1], d_unit_ref), int((got[1] != d_unit_ref).sum())
+    assert torch.equal(unit_only, d_unit_ref)
+    for d_table in (got[0], table_only):
+        assert bool(((d_table - d_ref).abs() <= 1e-5 * bound + 1e-7).all())
+    return got
 
 
 @pytest.mark.parametrize("with_grad", [False, True])
 @pytest.mark.parametrize("n", [30000, 49152, 65536])
 def test_permuto_kernel_matches_plain(cuda, with_grad, n):
-    """K6 against its plain version at the sphere-init, data-step and
-    occupancy-refresh shapes: rows, weights, rank codes, feats, dfeats (with
-    and without saving for a backward), the per-corner updates and the
-    points' gradient bit for bit (the same operations in the same order, no
-    contraction); the table gradient through K1 to the atomics' summation
-    order."""
-    from volsurfs_tpu_torch.ops import permuto as P
-
+    """K6 against its plain versions at the sphere-init, data-step and
+    occupancy-refresh shapes: feats and dfeats bit for bit (the same
+    operations in the same order, no contraction); the fused backward's
+    points' gradient bit for bit and its table gradient to the atomics'
+    summation order."""
     enc, unit, rng = _permuto_inputs(cuda, n)
-    ddiff = enc.ddiff if with_grad else None
-    args = (unit, enc.table.detach(), enc.W, enc.level_sizes, enc.level_offsets, ddiff)
-    for save in (False, True):
-        got = P.permuto_forward(*args, save=save)
-        ref = P.permuto_forward_reference(*args, save=save)
-        for name, a, b in zip(("feats", "dfeats", "idx", "bary", "code"), got, ref):
-            assert (a is None) == (b is None), name
-            if a is not None:
-                assert torch.equal(a, b), (name, save, int((a != b).sum()))
-    L = enc.nr_levels
-    dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32)).to(cuda)
-    gd = None
-    if with_grad:
-        gd = torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32)).to(cuda)
-    idx, bary, code = got[2], got[3], got[4]
-    bwd = (idx, bary, code, dout, ddiff, gd, enc.table.detach(), enc.W)
-    upd, d_unit = P.permuto_backward(*bwd)
-    upd_ref, d_unit_ref = P.permuto_backward_reference(*bwd)
-    assert torch.equal(upd, upd_ref)
-    assert torch.equal(d_unit, d_unit_ref)
-    upd_only, none = P.permuto_backward(*bwd[:6])
-    assert none is None and torch.equal(upd_only, upd_ref)
-    d_table = S.scatter_add_rows(idx.reshape(-1), upd, enc.total_rows)
-    d_ref = S.scatter_add_rows_reference(idx.reshape(-1), upd_ref, enc.total_rows)
-    torch.cuda.synchronize()
-    # atomics sum in another order than the plain version: 1e-5 of the
-    # absolute sum of a row's updates
-    bound = S.scatter_add_rows_reference(idx.reshape(-1), upd_ref.abs(), enc.total_rows)
-    assert bool(((d_table - d_ref).abs() <= 1e-5 * bound + 1e-7).all())
+    plain_rows = _check_permuto_forward(enc, unit, with_grad)
+    _check_permuto_backward(enc, unit, rng, with_grad, plain_rows)
+
+
+@pytest.mark.parametrize("nr_levels", [24, 4])
+@pytest.mark.parametrize("n", [1, 33, 49151])
+def test_permuto_forward_kernel_ragged_tiles(cuda, nr_levels, n):
+    """The forward at point counts that leave the last block part full (a
+    block is 256 (point, level) threads) and at few levels: feats and dfeats
+    bit for bit, with and without grads."""
+    enc, unit, _ = _permuto_inputs(cuda, n, seed=n, nr_levels=nr_levels)
+    for with_grad in (False, True):
+        _check_permuto_forward(enc, unit, with_grad)
+
+
+@pytest.mark.parametrize("nr_levels", [24, 4])
+def test_permuto_backward_kernel_ragged_tiles(cuda, nr_levels):
+    """The fused backward at point counts that leave a tile part full and
+    at few levels (fewer slots than a block has warps), with and without
+    grads."""
+    for n in (1, 33, 4099):
+        enc, unit, rng = _permuto_inputs(cuda, n, seed=n, nr_levels=nr_levels)
+        for with_grad in (False, True):
+            plain_rows = _check_permuto_forward(enc, unit, with_grad)
+            _check_permuto_backward(enc, unit, rng, with_grad, plain_rows)
+
+
+@pytest.mark.parametrize("kind", ["ball", "refresh", "outside"])
+def test_permuto_backward_kernel_kinds_of_points(cuda, kind):
+    """The backward's rows and weights, recomputed from the points, at the
+    surf stage's kinds of points (samples in the bounding ball with 16 at
+    the invalid samples' depth 1e10, voxel centres, points outside the
+    box): its results hold against the plain version, which takes the plain
+    forward's rows and weights."""
+    enc, unit, rng = _permuto_inputs(cuda, 4096, seed=7, kind=kind)
+    plain_rows = _check_permuto_forward(enc, unit, True)
+    _check_permuto_backward(enc, unit, rng, True, plain_rows)
+
+
+def test_permuto_backward_kernel_zero_cotangents(cuda):
+    """Samples with zero cotangents (a ray's unused samples, the points at
+    1e10 among them, which all hash to the same rows) add nothing to the
+    table's gradient: the kernel skips their updates, and the result still
+    matches the plain version, which adds the zeros."""
+    enc, unit, rng = _permuto_inputs(cuda, 49152)
+    masked = torch.zeros(49152, dtype=torch.bool, device=cuda)
+    masked[64:80] = True
+    masked[::3] = True
+    plain_rows = _check_permuto_forward(enc, unit, True)
+    d_table, _ = _check_permuto_backward(enc, unit, rng, True, plain_rows, masked=masked)
+    assert bool(d_table.any())
 
 
 def _refreshed_grid(device, res=256):
@@ -442,8 +519,9 @@ def test_surf_steps_on_the_card(cuda, tmp_path):
     """The surf configuration of tests/_stage_config.py for 64 steps (the
     sphere-init phase and the data phase, two occupancy refreshes) through
     Trainer.train, then a render of a test camera: finite losses and frame,
-    and the path launched K1, K6 (forward and backward) and K7 and no plain
-    version."""
+    and the path launched K6 (forward and backward) and K7, no plain
+    version, and not K1 (K6's backward accumulates the table's gradient
+    itself)."""
     from volsurfs_tpu_torch.methods.surf import Surf
     from volsurfs_tpu_torch.ops import permuto as P
     from volsurfs_tpu_torch.ops import samplers as SP
@@ -468,6 +546,6 @@ def test_surf_steps_on_the_card(cuda, tmp_path):
     out = trainer.render_camera(mv["test"].cameras[0])
     assert out["rgb"].shape == (32, 32, 3) and np.isfinite(out["rgb"]).all()
     counts = {**S.launches, **P.launches, **SP.launches}
-    assert min(counts["scatter_add"], counts["permuto_fwd"], counts["permuto_bwd"],
-               counts["occupancy_sampler"]) > 0, counts
+    assert min(counts["permuto_fwd"], counts["permuto_bwd"], counts["occupancy_sampler"]) > 0
+    assert counts["scatter_add"] == 0, counts
     assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts

@@ -23,6 +23,8 @@ from volsurfs_tpu_torch.convert import module_state_from_flax
 from volsurfs_tpu_torch.models import encodings as TE
 from volsurfs_tpu_torch.ops import permuto as P
 
+from _permuto_points import kinds_of_points
+
 torch.set_num_threads(2)
 
 N = 4096
@@ -161,3 +163,100 @@ def test_permuto_points_grad_matches_jax(with_grads):
     assert P.launches["permuto_bwd_reference"] == 1
     ref = np.asarray(ref)
     assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind", ["ball", "refresh", "outside"])
+def test_permuto_lookup_grads_match_jax_at_the_paths_kinds_of_points(kind):
+    """PermutoLookupWithGrad's table and points' gradients on the CPU (the
+    fused backward's plain version, which recomputes the rows and weights
+    from the points) against jax.vjp at the surf stage's kinds of points:
+    samples in the bounding ball with 16 at the invalid samples' depth
+    (1e10: their lattice keys pass 2^31, where the float-to-int conversion
+    saturates as XLA's does), an occupancy refresh's voxel centres, points
+    outside the box."""
+    rng = np.random.default_rng(7)
+    pts = kinds_of_points(rng, kind)
+    n = pts.shape[0]
+    jmod = JE.PermutoEncoder(nr_iters_for_c2f=100)
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(pts[:4]))
+    table = rng.uniform(-0.5, 0.5, params["params"]["table"].shape).astype(np.float32)
+    params = {"params": {"table": table}}
+    tmod = TE.PermutoEncoder(nr_iters_for_c2f=100)
+    tmod.load_state_dict(module_state_from_flax(params))
+    it = 45
+    cot_f = rng.standard_normal((n, tmod.output_dim)).astype(np.float32)
+    cot_d = rng.standard_normal((3, n, tmod.output_dim)).astype(np.float32)
+    prev = JE._TABLE_GRAD_MODE
+    JE.set_table_grad_mode("flat")
+    try:
+        _, vjp = jax.vjp(lambda p, x: jmod.apply(p, x, it, with_grads=True)[:2], params,
+                         jnp.asarray(pts))
+        ref_params, ref_pts = vjp((jnp.asarray(cot_f), jnp.asarray(cot_d)))
+    finally:
+        JE.set_table_grad_mode(prev)
+    points = torch.from_numpy(pts).requires_grad_(True)
+    feats, dfeats, _ = tmod(points, it, with_grads=True)
+    grad_table, grad_pts = torch.autograd.grad(
+        (feats, dfeats), (tmod.table, points), (torch.from_numpy(cot_f), torch.from_numpy(cot_d)))
+    dbary_max = float(tmod.ddiff.abs().max()) * 2
+    bound = _row_bound(tmod, pts, np.abs(cot_f).max() + 3 * dbary_max * np.abs(cot_d).max())
+    assert (np.abs(grad_table.numpy() - np.asarray(ref_params["params"]["table"])) <= bound).all()
+    ref_pts = np.asarray(ref_pts)
+    assert np.abs(grad_pts.numpy() - ref_pts).max() <= 1e-6 * np.abs(ref_pts).max()
+
+
+@pytest.mark.parametrize("with_grads", [False, True])
+@pytest.mark.parametrize("want_unit", [False, True])
+def test_permuto_fused_backward_plain_is_per_corner_backward_and_scatter(with_grads, want_unit):
+    """The fused backward's plain version (what a CPU tensor runs) is
+    permuto_backward_reference followed by scatter_add_rows_reference, bit
+    for bit, and gives only the gradients asked for."""
+    from volsurfs_tpu_torch.ops.scatter_add import scatter_add_rows_reference
+
+    rng, pts, _, _, tmod = _setup(5)
+    unit = (torch.from_numpy(pts[:1024]) / tmod.half_sides + 1.0) / 2.0
+    n, L = unit.shape[0], tmod.nr_levels
+    ddiff = tmod.ddiff if with_grads else None
+    lookup = (unit, tmod.table.detach(), tmod.W, tmod.level_sizes, tmod.level_offsets)
+    _, _, idx, bary, code = P.permuto_forward_reference(*lookup, ddiff)
+    dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32))
+    gd = (torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32))
+          if with_grads else None)
+    upd, d_unit_ref = P.permuto_backward_reference(
+        idx, bary, code, dout, ddiff, gd, tmod.table.detach() if want_unit else None, tmod.W)
+    d_table_ref = scatter_add_rows_reference(idx.reshape(-1), upd, tmod.total_rows)
+    d_table, d_unit = P.permuto_backward(*lookup, dout, ddiff, gd, want_unit=want_unit)
+    assert torch.equal(d_table, d_table_ref)
+    assert (d_unit is None) == (not want_unit)
+    if want_unit:
+        assert torch.equal(d_unit, d_unit_ref)
+    none, d_unit_only = P.permuto_backward(*lookup, dout, ddiff, gd, want_table=False,
+                                           want_unit=want_unit)
+    assert none is None and (d_unit_only is None or torch.equal(d_unit_only, d_unit_ref))
+
+
+def test_permuto_lookup_with_grad_table_and_points_grads_match_jax():
+    """One backward of PermutoLookupWithGrad (through the encoder's
+    training path) gives the table's and the points' gradients together,
+    each at the tolerance of its own test above."""
+    rng, pts, jmod, params, tmod = _setup(6, 100)
+    it = 45
+    cot_f = rng.standard_normal((N, tmod.output_dim)).astype(np.float32)
+    cot_d = rng.standard_normal((3, N, tmod.output_dim)).astype(np.float32)
+    prev = JE._TABLE_GRAD_MODE
+    JE.set_table_grad_mode("flat")
+    try:
+        _, vjp = jax.vjp(lambda p, x: jmod.apply(p, x, it, with_grads=True)[:2], params,
+                         jnp.asarray(pts))
+        ref_params, ref_pts = vjp((jnp.asarray(cot_f), jnp.asarray(cot_d)))
+    finally:
+        JE.set_table_grad_mode(prev)
+    points = torch.from_numpy(pts).requires_grad_(True)
+    feats, dfeats, _ = tmod(points, it, with_grads=True)
+    grad_table, grad_pts = torch.autograd.grad(
+        (feats, dfeats), (tmod.table, points), (torch.from_numpy(cot_f), torch.from_numpy(cot_d)))
+    dbary_max = float(tmod.ddiff.abs().max()) * 2
+    bound = _row_bound(tmod, pts, np.abs(cot_f).max() + 3 * dbary_max * np.abs(cot_d).max())
+    assert (np.abs(grad_table.numpy() - np.asarray(ref_params["params"]["table"])) <= bound).all()
+    ref_pts = np.asarray(ref_pts)
+    assert np.abs(grad_pts.numpy() - ref_pts).max() <= 1e-6 * np.abs(ref_pts).max()

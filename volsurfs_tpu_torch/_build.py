@@ -55,8 +55,8 @@ _KERNEL_SIGNATURES = {
         "vs_bvh_trace": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P]),
     },
     "permuto.cu": {
-        "vs_permuto_forward": (_I, [_P] * 11 + [_LL, _I, _P]),
-        "vs_permuto_backward": (_I, [_P] * 10 + [_LL, _I, _P]),
+        "vs_permuto_forward": (_I, [_P] * 8 + [_LL, _I, _P]),
+        "vs_permuto_backward": (_I, [_P] * 10 + [_LL, _I, _LL, _P]),
     },
     "occupancy_sampler.cu": {
         "vs_occupancy_samples": (_I, [_P] * 11 + [_F, _F, _F, _I, _I, _I, _I, _F, _I, _LL, _P]),

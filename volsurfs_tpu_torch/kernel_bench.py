@@ -1,6 +1,8 @@
 """Times the port's CUDA kernels at the shapes of the volsurfs main path.
 
-    python -m volsurfs_tpu_torch.kernel_bench
+    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6]
+
+(all three without arguments):
 
 - K1 ``scatter_add_rows``: one HashGrid2D backward of the train step (16
   levels x 4 lerp corners x 512 rays x 4 hash corners, F=2, into the
@@ -9,7 +11,13 @@
   ``runs/pipeline_tpu_256/volsurfs/meshes/``: the train step's 5 x 512 rays
   (drawn from the tensor reel as the train step draws them, fixed seed),
   one 16,384-ray render chunk (the test frame's second, rows 64-127, the
-  one with the most hits) and the whole 256x256 frame (5 x 65,536 rays).
+  one with the most hits) and the whole 256x256 frame (5 x 65,536 rays);
+- K6 ``permuto_forward`` at base.cfg's width (24 levels, 3,898,240 rows)
+  on a data step's 49,152 samples and a refresh chunk's 65,536 points,
+  with and without grads, nothing saved for a backward; and one
+  differentiable lookup with grads (``permuto_lookup``, the curvature
+  term's) at 49,152 samples, forward and backward into the table and the
+  points, whatever kernels the tree's backward takes.
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 shape) with ``ms`` (median of CUDA-event timings of one call) and
@@ -76,7 +84,7 @@ SPIN_NAME = "spin_kernel"  # the kernel of torch.cuda._sleep
 def profile_calls(fn, reps, cpu=False, tries=5, spin_cycles=10_000_000):
     """fn() under torch.profiler (CUDA activity, and CPU with cpu=True):
     one call before the trace, then reps calls in it, ended by a
-    synchronize, between three short spin kernels (~1 ms each) and a long
+    synchronize, between 32 short spin kernels (~0.25 ms each) and a long
     one (~5 ms). Returns (the device events of the traced calls, host wall
     ms a traced call, the captures taken). Once other traces ran in the
     process, the tracer can lose the first events of a trace (chip_smoke.py
@@ -93,8 +101,8 @@ def profile_calls(fn, reps, cpu=False, tries=5, spin_cycles=10_000_000):
     faults = []
     for capture in range(1, tries + 1):
         with profile(activities=activities) as prof:
-            for _ in range(3):
-                torch.cuda._sleep(spin_cycles // 5)
+            for _ in range(32):
+                torch.cuda._sleep(spin_cycles // 20)
             torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(reps):
@@ -105,8 +113,8 @@ def profile_calls(fn, reps, cpu=False, tries=5, spin_cycles=10_000_000):
             torch.cuda.synchronize()
         events = device_kernels(prof)
         spins = [e for e in events if SPIN_NAME in e.name]
-        # a short spin lasts a fifth of the long one: ~1 against ~5 ms at
-        # 1.98 GHz, and on either side of 3 ms at any clock from 0.7 GHz up
+        # a short spin lasts a twentieth of the long one: ~0.25 against ~5 ms
+        # at 1.98 GHz, and on either side of 3 ms at any clock from 0.7 GHz up
         short = [e.time_range.end for e in spins if e.device_time < 3000]
         long = [e.time_range.start for e in spins if e.device_time >= 3000]
         if len(long) != 1:
@@ -224,31 +232,87 @@ def k2_rays(device, reel, seed=0):
     }
 
 
-def main():
+def k6_inputs(device, n, seed=0):
+    """A base-width PermutoEncoder with a table of uniform(-0.5, 0.5) rows
+    and n points in its unit cube: uniform in the ball of radius 1 (the
+    bounding sphere), 16 at the invalid samples' depth (1e10). Returns
+    (encoder, unit points [n, 3], the generator, for more draws)."""
+    from volsurfs_tpu_torch.models.encodings import PermutoEncoder
+
+    rng = np.random.default_rng(seed)
+    enc = PermutoEncoder().to(device)
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(
+            rng.uniform(-0.5, 0.5, tuple(enc.table.shape)).astype(np.float32)))
+    pts = rng.standard_normal((n, 3))
+    pts *= rng.uniform(0, 1, (n, 1)) ** (1 / 3) / np.linalg.norm(pts, axis=-1, keepdims=True)
+    pts[:16] = 1e10
+    unit = (torch.from_numpy(pts.astype(np.float32)).to(device) / enc.half_sides + 1.0) / 2.0
+    return enc, unit.contiguous(), rng
+
+
+def _bench_line(bench, fn, smi, **fields):
+    split = device_times(fn)
+    print(json.dumps({"bench": bench, **fields, "ms": time_ms(fn),
+                      "device_ms": sum(split.values()), "device_split": split,
+                      "card": smi}), flush=True)
+
+
+def bench_k6(device, smi):
+    import inspect
+
+    from volsurfs_tpu_torch.ops import permuto as P
+
+    # an earlier tree's forward takes save= and saves by default
+    unsaved = {"save": False} if "save" in inspect.signature(P.permuto_forward).parameters else {}
+    for n in (49152, 65536):
+        enc, unit, rng = k6_inputs(device, n)
+        for grads in (False, True):
+            args = (unit, enc.table.detach(), enc.W, enc.level_sizes, enc.level_offsets,
+                    enc.ddiff if grads else None)
+            _bench_line("k6_forward", lambda: P.permuto_forward(*args, **unsaved), smi,
+                        points=n, grads=grads)
+        if n == 49152:
+            L = enc.nr_levels
+            dout = torch.from_numpy(rng.standard_normal((n, 2 * L)).astype(np.float32)).to(device)
+            gd = torch.from_numpy(rng.standard_normal((3, n, 2 * L)).astype(np.float32)).to(device)
+            lookup_args = (enc.table, enc.W, enc.level_sizes, enc.level_offsets, enc.ddiff)
+            points = unit.clone().requires_grad_(True)
+
+            def lookup():
+                out = P.permuto_lookup(lookup_args[0], points, *lookup_args[1:])
+                return torch.autograd.grad(out, (enc.table, points), (dout, gd))
+
+            _bench_line("k6_lookup_fwd_bwd", lookup, smi, points=n, grads=True)
+        del enc
+
+
+def main(argv=None):
+    import sys
+
     from volsurfs_tpu_torch.datasets.tensor_reel import make_tensor_reel
     from volsurfs_tpu_torch.ops import bvh as B
     from volsurfs_tpu_torch.ops import scatter_add as S
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA card")
+    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6"}
     device = torch.device("cuda")
     smi = card()
     print(smi, flush=True)
-    for case, (rows, upd, nr_rows) in k1_cases(device).items():
-        fn = lambda: S.scatter_add_rows(rows, upd, nr_rows)  # noqa: E731
-        split = device_times(fn)
-        print(json.dumps({"bench": "k1_scatter_add", "case": case, "ms": time_ms(fn),
-                          "device_ms": sum(split.values()), "device_split": split,
-                          "card": smi}), flush=True)
-    stacked = B.stack_bvhs([B.build_bvh(v, f) for v, f, _ in load_shells()], device)
-    reel = make_tensor_reel(*train_split(), device=device)
-    for shape, (rays_o, rays_d) in k2_rays(device, reel).items():
-        fn = lambda: B.trace_all(stacked, rays_o, rays_d)  # noqa: E731
-        split = device_times(fn)
-        print(json.dumps({"bench": "k2_bvh_trace", "shape": shape, "ms": time_ms(fn),
-                          "device_ms": sum(split.values()), "device_split": split,
-                          "card": smi}), flush=True)
-    stacked.check_step_cap()
+    if "k1" in which:
+        for case, (rows, upd, nr_rows) in k1_cases(device).items():
+            _bench_line("k1_scatter_add", lambda: S.scatter_add_rows(rows, upd, nr_rows), smi,
+                        case=case)
+    if "k2" in which:
+        stacked = B.stack_bvhs([B.build_bvh(v, f) for v, f, _ in load_shells()], device)
+        reel = make_tensor_reel(*train_split(), device=device)
+        for shape, (rays_o, rays_d) in k2_rays(device, reel).items():
+            _bench_line("k2_bvh_trace", lambda: B.trace_all(stacked, rays_o, rays_d), smi,
+                        shape=shape)
+        stacked.check_step_cap()
+    if "k6" in which:
+        bench_k6(device, smi)
 
 
 if __name__ == "__main__":

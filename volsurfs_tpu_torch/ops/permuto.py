@@ -9,29 +9,32 @@ onto the hyperplane x.1 = 0 of R^4 through a [3, 4L] projection (the level's
 and its 4 corners are hashed into the level's rows (primes 1, 2654435761,
 805459861, uint32 wrap-around, ``% size``); each row holds F = 2 features.
 
-``permuto_forward`` returns the features [N, 2L] (column 2l + f), with
-grads also their Jacobian dfeats [3, N, 2L] (K leading), and, where a
-backward can follow (``save``), what it needs: the absolute rows ``idx``
-[N, 4L] int32 (column c*L + l), the barycentric weights ``bary`` [N, 4L]
-and each (point, level)'s simplex as a rank code [N, L] uint8 (2 bits a
-residual), from which the constant weight Jacobian dbary is recomputed.
-``permuto_backward`` forms the table-gradient update of every (point,
-level, corner), ``bary * dout + sum_k dbary_k * gJ_k``, which
-``scatter_add_rows`` (kernel K1) accumulates into the table's rows, and,
-where the points need one, their gradient: the features' cotangent through
-the weights, ``sum (g . dout) * d bary / d unit`` over levels and corners,
-as JAX's custom VJPs return ``d_bary``. ``permuto_lookup`` is the
-differentiable entry point; without a backward to follow it calls the
-forward without ``save``.
+``permuto_forward`` returns the features [N, 2L] (column 2l + f) and, with
+grads, their Jacobian dfeats [3, N, 2L] (K leading). Its plain version, with
+``save``, also gives the absolute rows ``idx`` [N, 4L] int32 (column c*L +
+l), the barycentric weights ``bary`` [N, 4L] and each (point, level)'s
+simplex as a rank code [N, L] uint8 (2 bits a residual), from which the
+constant weight Jacobian dbary follows. ``permuto_backward`` gives the
+table's gradient, the update ``bary * dout + sum_k dbary_k * gd_k`` of every
+(point, level, corner) summed into the corner's row, and, where the points
+need one, their gradient: the features' cotangent through the weights,
+``sum (g . dout) * d bary / d unit`` over levels and corners, as JAX's custom
+VJPs return ``d_bary``. Its kernel recomputes the rows and weights from the
+points and accumulates the gradient itself, so no update tensor is stored
+and no scatter kernel follows. ``permuto_lookup`` is the differentiable
+entry point; its forward saves nothing but the points.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/permuto.cu``); on
-a CPU tensor it runs the plain version, torch ops in the JAX op order. The
-elevation is XLA:CPU's: fma(p2, W2, fma(p1, W1, p0 * W0)); the kernel makes
-the same fmas and no others (``-fmad=false``), so the simplex, ``idx``,
-``bary`` and the rank code equal the plain version's bit for bit on the
-card, and so do feats and dfeats (the corner sums in the same order), the
-updates and the points' gradient (the plain version sums it as the
-kernel's warp does).
+a CPU tensor it runs the plain version, torch ops in the JAX op order (the
+backward's: ``permuto_backward_reference``, then
+``scatter_add_rows_reference``). The elevation is XLA:CPU's: fma(p2, W2,
+fma(p1, W1, p0 * W0)); the kernels make the same fmas and no others
+(``-fmad=false``), so the simplices, rows and weights the kernels compute
+(the backward's recomputed ones too) equal the plain version's bit for bit
+on the card, and so do feats and dfeats (the corner sums in the same order)
+and the points' gradient (the plain version sums it as the kernel does);
+the table's gradient sums each row's updates in another order (atomics),
+so it agrees to float32 summation error.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from volsurfs_tpu_torch import _build
-from volsurfs_tpu_torch.ops.scatter_add import scatter_add_rows
+from volsurfs_tpu_torch.ops.scatter_add import scatter_add_rows_reference
 from volsurfs_tpu_torch.utils.math import MASK32, fma32, mul_u32
 
 PRIMES = (1, 2654435761, 805459861)
@@ -57,6 +60,13 @@ def _elevate(unit, W):
     rounding of the float32 dot."""
     p = [unit[:, k:k + 1] for k in range(3)]
     return fma32(p[2], W[2], fma32(p[1], W[1], p[0] * W[0]))
+
+
+def _to_int32(x):
+    """float32 -> int32 toward zero, saturating out of range as XLA's and
+    CUDA's conversions do (the CPU's own gives INT_MIN there: the invalid
+    samples' depth, 1e10, elevates far past 2^31)."""
+    return x.double().clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
 
 
 def _by_rank(rank):
@@ -111,8 +121,14 @@ def _corner_sums(gathered, weights, L):
 
 
 def permuto_forward_reference(unit, table, W, sizes, offsets, ddiff=None, save=True):
-    """Plain version of ``permuto_forward`` (same arguments and results)."""
+    """Plain version of ``permuto_forward`` (same arguments). Returns
+    (feats, dfeats or None, idx, bary, rank code), the last three None
+    without ``save``."""
     launches["permuto_fwd_reference"] += 1
+    return _forward_plain(unit, table, W, sizes, offsets, ddiff, save)
+
+
+def _forward_plain(unit, table, W, sizes, offsets, ddiff, save):
     L = sizes.shape[0]
     elev = _elevate(unit, W)
     ej = [elev[:, j * L:(j + 1) * L] for j in range(D + 1)]
@@ -135,7 +151,7 @@ def permuto_forward_reference(unit, table, W, sizes, offsets, ddiff=None, save=T
             lt = (diff[i] < diff[j]).to(torch.int32)
             rank[i] = rank[i] + lt
             rank[j] = rank[j] + (1 - lt)
-    sr = sum_rem.to(torch.int32)
+    sr = _to_int32(sum_rem)
     for j in range(D + 1):
         r = rank[j] + sr
         rem0[j] = torch.where(r < 0, rem0[j] + (D + 1), rem0[j])
@@ -161,7 +177,7 @@ def permuto_forward_reference(unit, table, W, sizes, offsets, ddiff=None, save=T
     offsets_l = offsets.long()[None, :]
     terms = []
     for k in range(D):
-        keys = [(rem0[k] + add).to(torch.int32).long() & MASK32 for add in (0.0, float(D + 1))]
+        keys = [_to_int32(rem0[k] + add).long() & MASK32 for add in (0.0, float(D + 1))]
         terms.append([mul_u32(key, PRIMES[k]) for key in keys])
     corners = []
     for corner in range(D + 1):
@@ -188,7 +204,7 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def permuto_forward(unit, table, W, sizes, offsets, ddiff=None, save=True):
+def permuto_forward(unit, table, W, sizes, offsets, ddiff=None):
     """Features of points in the unit cube, and with ``ddiff`` their
     Jacobian.
 
@@ -196,12 +212,9 @@ def permuto_forward(unit, table, W, sizes, offsets, ddiff=None, save=True):
     fine); W [3, 4L] the elevation (column j*L + l = E[j] / scale_l);
     sizes, offsets [L] int32 (each level's rows and its first row); ddiff
     [4, 3, L] float32 (d residual_j / d p_k, the unit rescale included) or
-    None; save: also return what ``permuto_backward`` needs. Returns
-    (feats [N, 2L], dfeats [3, N, 2L] or None, idx [N, 4L] int32, bary
-    [N, 4L] float32, rank code [N, L] uint8), the last three None without
-    save (the kernel then writes only the features and their Jacobian)."""
+    None. Returns (feats [N, 2L], dfeats [3, N, 2L] or None)."""
     if not unit.is_cuda:
-        return permuto_forward_reference(unit, table, W, sizes, offsets, ddiff, save)
+        return permuto_forward_reference(unit, table, W, sizes, offsets, ddiff, save=False)[:2]
     dev = unit.device
     N, L = unit.shape[0], sizes.shape[0]
     _build.check_tensor("unit", unit, torch.float32, (N, 3), dev)
@@ -214,18 +227,13 @@ def permuto_forward(unit, table, W, sizes, offsets, ddiff=None, save=True):
         _build.check_tensor("ddiff", ddiff, torch.float32, (D + 1, 3, L), dev)
     feats = torch.empty(N, 2 * L, dtype=torch.float32, device=dev)
     dfeats = torch.empty(3, N, 2 * L, dtype=torch.float32, device=dev) if with_grad else None
-    idx = bary = code = None
-    if save:
-        idx = torch.empty(N, 4 * L, dtype=torch.int32, device=dev)
-        bary = torch.empty(N, 4 * L, dtype=torch.float32, device=dev)
-        code = torch.empty(N, L, dtype=torch.uint8, device=dev)
     status = _build.kernels().vs_permuto_forward(
         unit.data_ptr(), W.data_ptr(), sizes.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-        _ptr(ddiff), feats.data_ptr(), _ptr(dfeats), _ptr(idx), _ptr(bary), _ptr(code),
-        N, L, torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(ddiff), feats.data_ptr(), _ptr(dfeats), N, L,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "permuto_forward")
     launches["permuto_fwd"] += 1
-    return feats, dfeats, idx, bary, code
+    return feats, dfeats
 
 
 def permuto_backward_reference(idx, bary, code, dout, ddiff=None, gd=None, table=None, W=None,
@@ -268,49 +276,62 @@ def permuto_backward_reference(idx, bary, code, dout, ddiff=None, gd=None, table
     return upd, d_unit
 
 
-def permuto_backward(idx, bary, code, dout, ddiff=None, gd=None, table=None, W=None,
-                     updates=True):
-    """The backward of a saved lookup. dout [N, 2L] is the cotangent of the
-    features, gd [3, N, 2L] (or None) that of dfeats, with ``ddiff`` [4, 3, L]
-    the lookup's. Returns (upd [N*4L, 2] in ``idx``'s order, ``bary * dout +
-    sum_k dbary_k * gd_k``, or None without ``updates``; d_unit [N, 3], the
-    points' gradient, with ``table`` [R, 2] and ``W`` [3, 4L], else None)."""
-    if not bary.is_cuda:
-        return permuto_backward_reference(idx, bary, code, dout, ddiff, gd, table, W, updates)
-    dev = bary.device
-    N, CL = bary.shape
-    L = CL // (D + 1)
-    _build.check_tensor("idx", idx, torch.int32, (N, CL), dev)
-    _build.check_tensor("bary", bary, torch.float32, (N, CL), dev)
-    _build.check_tensor("code", code, torch.uint8, (N, L), dev)
+def permuto_backward_fused_reference(unit, table, W, sizes, offsets, dout, ddiff=None, gd=None,
+                                     want_table=True, want_unit=False):
+    """Plain version of ``permuto_backward`` (same arguments and results):
+    the rows, weights and rank codes as ``permuto_forward_reference`` makes
+    them, then ``permuto_backward_reference`` and
+    ``scatter_add_rows_reference``."""
+    idx, bary, code = _forward_plain(unit, table, W, sizes, offsets, None, True)[2:]
+    upd, d_unit = permuto_backward_reference(idx, bary, code, dout, ddiff, gd,
+                                             table if want_unit else None, W, want_table)
+    if not want_table:
+        return None, d_unit
+    return scatter_add_rows_reference(idx.reshape(-1), upd, table.shape[0]), d_unit
+
+
+def permuto_backward(unit, table, W, sizes, offsets, dout, ddiff=None, gd=None, want_table=True,
+                     want_unit=False):
+    """The backward of a lookup of ``unit`` [N, 3] in ``table`` [R, 2], with
+    the lookup's W, sizes and offsets (and ``ddiff`` with grads). dout
+    [N, 2L] is the cotangent of the features, gd [3, N, 2L] (or None) that
+    of dfeats. Returns (d_table [R, 2], the sum over (point, level, corner)
+    of ``bary * dout + sum_k dbary_k * gd_k`` into the corner's row, or None
+    without ``want_table``; d_unit [N, 3], the points' gradient, or None
+    without ``want_unit``). The kernel recomputes the rows and weights from
+    the points."""
+    if not unit.is_cuda:
+        return permuto_backward_fused_reference(unit, table, W, sizes, offsets, dout, ddiff, gd,
+                                                want_table, want_unit)
+    dev = unit.device
+    N, L, R = unit.shape[0], sizes.shape[0], table.shape[0]
+    _build.check_tensor("unit", unit, torch.float32, (N, 3), dev)
+    _build.check_tensor("table", table, torch.float32, (R, 2), dev)
+    _build.check_tensor("W", W, torch.float32, (3, 4 * L), dev)
+    _build.check_tensor("sizes", sizes, torch.int32, (L,), dev)
+    _build.check_tensor("offsets", offsets, torch.int32, (L,), dev)
     _build.check_tensor("dout", dout, torch.float32, (N, 2 * L), dev)
     if gd is not None:
         _build.check_tensor("gd", gd, torch.float32, (3, N, 2 * L), dev)
         _build.check_tensor("ddiff", ddiff, torch.float32, (D + 1, 3, L), dev)
-    d_unit = None
-    if table is not None:
-        _build.check_tensor("table", table, torch.float32, (table.shape[0], 2), dev)
-        _build.check_tensor("W", W, torch.float32, (3, CL), dev)
-        d_unit = torch.empty(N, 3, dtype=torch.float32, device=dev)
-    upd = torch.empty(N * CL, 2, dtype=torch.float32, device=dev) if updates else None
+    d_table = torch.empty(R, 2, dtype=torch.float32, device=dev) if want_table else None
+    d_unit = torch.empty(N, 3, dtype=torch.float32, device=dev) if want_unit else None
     status = _build.kernels().vs_permuto_backward(
-        idx.data_ptr(), bary.data_ptr(), code.data_ptr(), _ptr(ddiff if gd is not None else None),
-        _ptr(W if table is not None else None), _ptr(table), dout.data_ptr(), _ptr(gd),
-        _ptr(upd), _ptr(d_unit), N, L, torch.cuda.current_stream(dev).cuda_stream)
+        unit.data_ptr(), W.data_ptr(), sizes.data_ptr(), offsets.data_ptr(),
+        _ptr(ddiff if gd is not None else None), table.data_ptr(), dout.data_ptr(), _ptr(gd),
+        _ptr(d_table), _ptr(d_unit), N, L, R, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "permuto_backward")
     launches["permuto_bwd"] += 1
-    return upd, d_unit
+    return d_table, d_unit
 
 
 def _lookup_backward(ctx, dout, gd=None):
-    """The table's gradient (through K1) and the points', as asked."""
-    table, W, idx, bary, code, ddiff = ctx.saved_tensors
+    """The table's gradient and the points', as asked, in one kernel that
+    recomputes the rows and weights from the points."""
+    table, unit, W, sizes, offsets, ddiff = ctx.saved_tensors
     want_table, want_unit = ctx.needs_input_grad[:2]
-    upd, d_unit = permuto_backward(
-        idx, bary, code, dout.contiguous(), ddiff, None if gd is None else gd.contiguous(),
-        table if want_unit else None, W, updates=want_table)
-    d_table = scatter_add_rows(idx.reshape(-1), upd, table.shape[0]) if want_table else None
-    return d_table, d_unit
+    return permuto_backward(unit, table, W, sizes, offsets, dout.contiguous(), ddiff,
+                            None if gd is None else gd.contiguous(), want_table, want_unit)
 
 
 class PermutoLookup(torch.autograd.Function):
@@ -318,8 +339,8 @@ class PermutoLookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, unit, W, sizes, offsets):
-        feats, _, idx, bary, code = permuto_forward(unit, table.detach(), W, sizes, offsets)
-        ctx.save_for_backward(table.detach(), W, idx, bary, code, None)
+        feats = permuto_forward(unit, table.detach(), W, sizes, offsets)[0]
+        ctx.save_for_backward(table.detach(), unit, W, sizes, offsets, None)
         return feats
 
     @staticmethod
@@ -334,9 +355,8 @@ class PermutoLookupWithGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, unit, W, sizes, offsets, ddiff):
-        feats, dfeats, idx, bary, code = permuto_forward(
-            unit, table.detach(), W, sizes, offsets, ddiff)
-        ctx.save_for_backward(table.detach(), W, idx, bary, code, ddiff)
+        feats, dfeats = permuto_forward(unit, table.detach(), W, sizes, offsets, ddiff)
+        ctx.save_for_backward(table.detach(), unit, W, sizes, offsets, ddiff)
         return feats, dfeats
 
     @staticmethod
@@ -346,13 +366,12 @@ class PermutoLookupWithGrad(torch.autograd.Function):
 
 def permuto_lookup(table, unit, W, sizes, offsets, ddiff=None):
     """feats [N, 2L] of points in the unit cube, or with ``ddiff`` (feats,
-    dfeats [3, N, 2L]), differentiable in the table and the points. Where no
-    backward can follow (grad mode off, or neither needs a gradient) the
-    forward saves nothing."""
+    dfeats [3, N, 2L]), differentiable in the table and the points. The
+    forward saves nothing for the backward, which recomputes the rows and
+    weights from the points."""
     if torch.is_grad_enabled() and (table.requires_grad or unit.requires_grad):
         if ddiff is None:
             return PermutoLookup.apply(table, unit, W, sizes, offsets)
         return PermutoLookupWithGrad.apply(table, unit, W, sizes, offsets, ddiff)
-    feats, dfeats, _, _, _ = permuto_forward(unit, table.detach(), W, sizes, offsets, ddiff,
-                                             save=False)
+    feats, dfeats = permuto_forward(unit, table.detach(), W, sizes, offsets, ddiff)
     return feats if ddiff is None else (feats, dfeats)
