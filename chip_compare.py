@@ -14,7 +14,7 @@ and backward, through the public wrappers). The other tree is measured with this
 ``volsurfs_tpu_torch/kernel_bench.py`` is replaced by this one's and its
 chip_smoke's ``profiled`` by this one's, so that both time and profile
 alike; its kernels are its own. Prints each run's train, kernel,
-orbit, quality and surf-stage lines. Needs a CUDA card.
+orbit, quality, surf- and offsets_surfs-stage lines. Needs a CUDA card.
 
 With ``--surf-pairs N`` it runs only the surf stage's training
 (chip_smoke's ``phase_surf_train``: 100 sphere-init and 300 data steps
@@ -35,7 +35,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = tuple('{"phase": "%s"' % p for p in (
     "build", "train_done", "train_profile", "k4_shade", "baked_orbit",
     "baked_orbit_profile", "baked_quality", "k6_permuto", "surf_train", "surf_eval",
-    "surf_train_profile", "surf_stage_launches")) + ('{"kernels"', '{"bench"')
+    "surf_train_profile", "surf_stage_launches", "k8_volrender", "offsets_train",
+    "offsets_eval", "offsets_train_profile", "offsets_stage_launches")) + (
+    '{"kernels"', '{"bench"')
 
 # runs the other tree's chip_smoke.main() with this tree's profiled()
 BOOTSTRAP = """

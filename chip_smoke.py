@@ -5,7 +5,9 @@
 
 Drives the port's volsurfs slice at the width of config/volsurfs/base_5.cfg
 on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/,
-then its surf stage at the width of config/surf/base.cfg:
+then its surf stage at the width of config/surf/base.cfg, then its
+offsets_surfs stage at the width of config/offsets_surfs/base_5.cfg from
+the surf stage's SDF:
 
 1. the card's name and power limit;
 2. builds the CUDA kernels (one nvcc per csrc/*.cu source, in parallel) and
@@ -88,23 +90,48 @@ then its surf stage at the width of config/surf/base.cfg:
    fresh Surf, whose render of test camera 0 must equal the trained one's
    bit for bit; eval_split of the test split (psnr > 16 dB, the bar of
    tests/test_surf_e2e.py); 3 data steps under the profiler; the launches
-   over phases 14-15 (K6 forward and backward and K7 each > 0, K1 0, no
-   plain version).
+   over phases 14-15 (K6 forward and backward, K7 and K8's kernels each >
+   0, K1 0, no plain version); the checkpoint's sdf.pt kept for phase 16;
+16. the offsets_surfs stage: config/offsets_surfs/base_5.cfg at full width
+   (5 surfaces, 4 inner) through Trainer.train on the sphere scene, its
+   shared encoder and main head loaded from phase 15's sdf.pt
+   (OffsetsSurfs.load_main_sdf), its schedule cut by one factor (1/50;
+   1/100 is the largest that leaves color-init 10 steps, and its test psnr,
+   13.69 dB, sat 0.69 dB above the bar) to 40 offsets-init, 20
+   color-init, 840 first-phase and 100 second-phase steps (the cuts in the
+   ``offsets_setup`` line): the median step of each phase, the
+   offsets-init loss (it must fall), the occupancy refreshes;
+17. the rest of that stage: the checkpoint loaded into a fresh
+   OffsetsSurfs, whose render of test camera 0 (rgb and every surface's
+   opacity) must equal the trained one's bit for bit; eval_split of the
+   test split (psnr > 13 dB, the offsets bar of
+   tests/test_pipeline_e2e.py); 3 data steps under the profiler; the
+   launches over phases 16-17 (K6, K7 and K8's kernels each > 0, K1 0, no
+   plain version);
+18. kernel K8 (csrc/volrender.cu: combine, the NeuS transmittance scan
+   forward and backward, importance sampling) against its plain versions
+   at the surf (K = 1 surface) and offsets_surfs (K = 5) data steps'
+   shapes, each at the ray count its path's last steps took (the
+   trainers' dynamic-count buckets: 512 and 2,048 on the card;
+   volsurfs_tpu_torch/kernel_bench.py's k8_cases and k8_check): combine
+   bit for bit at a step's three merges, the scan's outputs and gradient
+   and the importance depths within stated tolerances; times, bounds,
+   registers, and torch.cumprod beside the scan.
 
 The main paths, each with the launch counts set to 0 before it and read
 after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
-begins with train_render, from one reset), baked_render (phases 9-10) and
-surf_stage (phases 14-15).
+begins with train_render, from one reset), baked_render (phases 9-10),
+surf_stage (phases 14-15) and offsets_stage (phases 16-17).
 
 Each phase prints one JSON line. The line before the last is the kernel
 table; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; a watchdog turns a hang into a traceback and an exit
-after 480 s. Needs a CUDA device; imports nothing of JAX.
+after 700 s. Needs a CUDA device; imports nothing of JAX.
 """
 
 import faulthandler
 
-faulthandler.dump_traceback_later(480, exit=True)
+faulthandler.dump_traceback_later(700, exit=True)
 
 import json  # noqa: E402
 import os  # noqa: E402
@@ -146,6 +173,12 @@ SURF_CFG = os.path.join(REPO, "config", "surf", "base.cfg")
 SURF_SPHERE_STEPS = 100
 SURF_DATA_STEPS = 300
 SURF_PSNR_BAR = 16.0
+# the offsets_surfs stage: config/offsets_surfs/base_5.cfg, its schedule cut
+# by one factor; its test PSNR must pass tests/test_pipeline_e2e.py's
+# offsets bar
+OFFSETS_CFG = os.path.join(REPO, "config", "offsets_surfs", "base_5.cfg")
+OFFSETS_SCALE = 1 / 50
+OFFSETS_PSNR_BAR = 13.0
 CHUNK_SURF = 16384  # rays of a render chunk (base.cfg's test_rays_batch_size)
 PROFILED_STEPS = 3
 # the sphere scene as the stage trains on it: 24 train and 4 test cameras
@@ -167,7 +200,7 @@ def emit(phase, **fields):
 
 
 # kernel families whose device time and launches a profile reports apart
-WATCHED = ("permuto", "scatter_add", "Memset")
+WATCHED = ("permuto", "scatter_add", "Memset", "combine_samples", "neus_")
 
 
 def profiled(fn, reps, top=5):
@@ -199,10 +232,11 @@ def profiled(fn, reps, top=5):
 
 
 def _launch_counts():
-    from volsurfs_tpu_torch.ops import bvh, permuto, samplers, scatter_add, shade
+    from volsurfs_tpu_torch.ops import (bvh, permuto, samplers, samples, scatter_add, shade,
+                                        volume_rendering)
 
     return (scatter_add.launches, bvh.launches, shade.launches, permuto.launches,
-            samplers.launches)
+            samplers.launches, samples.launches, volume_rendering.launches)
 
 
 def reset_counts():
@@ -1085,7 +1119,9 @@ def phase_surf_stage(device, trainer, chunk):
 
 def phase_surf(device, reel, mv, resources):
     """The surf stage (phases 12-15): K6 and K7 against their plain
-    versions, then the main path surf_stage with the counts reset."""
+    versions, then the main path surf_stage with the counts reset. Returns
+    (K6's result, K7's, the path's launches, the checkpointed SDF's state
+    dict, the rays of its last step)."""
     k6 = phase_permuto(device, resources)
     k7 = phase_occupancy_sampler(device, reel)
     torch.cuda.empty_cache()
@@ -1096,10 +1132,261 @@ def phase_surf(device, reel, mv, resources):
     phase_surf_stage(device, trainer, CHUNK_SURF)
     counts = read_counts()
     emit("surf_stage_launches", **counts)
+    # the stage's product for the next: the checkpointed SDF
+    from volsurfs_tpu_torch.training.checkpoints import get_last_checkpoint_in_path
+
+    last = get_last_checkpoint_in_path(trainer.ckpt_dir)
+    sdf_path = os.path.join(trainer.ckpt_dir, f"{last:07d}", "models", "sdf.pt")
+    sdf_state = torch.load(sdf_path, map_location="cpu", weights_only=True)
+    rays = trainer._rays_bucket
     del trainer
     run_tmp.cleanup()
     torch.cuda.empty_cache()
-    return k6, k7, counts
+    return k6, k7, counts, sdf_state, rays
+
+
+def _k8_cost(kind, args):
+    """(bytes, operations) of one K8 call: each input read once, each output
+    written once; a few operations a sample (combine: ~6 a slot for the
+    merge, the chain and dt; the scan: 4 a sample forward, 8 backward;
+    importance: ~40 a sample and surface for the alphas, scan, weights and
+    CDF, 2 log2(S) + 12 a new depth)."""
+    if kind == "combine":
+        a, b, va, _ = args
+        R, Sa = a.z.shape
+        S, C = Sa + b.z.shape[1], 0 if va is None else va.shape[-1]
+        return R * (S * (5 + 4 * C) + 12) + R * (S * (9 + 4 * C) + 4), 6 * R * S
+    if kind in ("transmittance_fwd", "transmittance_bwd"):
+        N, S = args[0].shape
+        if kind == "transmittance_fwd":
+            return N * S * 5 + N * S * 8 + 4 * N, 4 * N * S
+        return N * S * 17 + 4 * N + 4 * N * S, 8 * N * S
+    samples, sdfs, _, n, _ = args
+    R, S = samples.z.shape
+    K = sdfs.shape[-1]
+    nbytes = R * S * (9 + 4 * K) + R * n * 4 + R * n * 5
+    return nbytes, R * S * K * 40 + R * n * (2 * int(np.log2(S)) + 12)
+
+
+def phase_volrender(device, resources, rays):
+    """K8 against its plain versions at the surf (K = 1) and offsets_surfs
+    (K = 5) data steps' shapes, at the rays {K: R} the paths' last steps
+    took (phase 18). Returns {K: {kernel: result}} of each kernel's largest
+    case."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import samples as TS
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    registers = {k: v.get("registers") for k, v in resources.items()
+                 if k.startswith(("combine_samples", "neus_"))}
+    results = {}
+    for K, R in sorted(rays.items()):
+        cases = kb.k8_cases(device, K, R)
+        rows = {}
+
+        def measure(kernel, case, kind, fn, plain, args, got, ref, library=None):
+            check = kb.k8_check(kind, got, ref)
+            bound_ms, bound_by = _bound(*_k8_cost(kind, args))
+            row = dict(kernel=kernel, surfaces=K, rays=R, case=case, **check, ms=kb.time_ms(fn),
+                       device_ms=kb.device_ms(fn),
+                       plain_ms=kb.time_ms(plain, reps=5, warmup=1), bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None if library is None else
+                       kb.time_ms(library), registers=registers)
+            emit("k8_volrender", **row)
+            if not check["ok"]:
+                raise AssertionError(f"K8 {kernel} ({K} surfaces, {case}) disagrees: {row}")
+            rows[kernel] = row
+
+        for merge, args in cases["combine"].items():
+            a, b, va, vb = args
+            got, ref = TS.combine(*args[:2], 1e-4, va, vb), TS.combine_reference(a, b, 1e-4, va, vb)
+            outs = [(s_.z, s_.mask, s_.dt, s_.max_dt) + (() if v is None else (v,))
+                    for s_, v in (got, ref)]
+            measure("combine_samples", merge, "combine",
+                    lambda: TS.combine(a, b, 1e-4, va, vb),
+                    lambda: TS.combine_reference(a, b, 1e-4, va, vb), args, *outs)
+        alpha, mask = cases["transmittance"]
+        cot = [torch.randn(alpha.shape, device=device), torch.randn(alpha.shape, device=device),
+               torch.randn(alpha.shape[0], 1, device=device)]
+        graphs = {}
+        for name, fn in (("kernel", VR.neus_transmittance),
+                         ("plain", VR.neus_transmittance_reference)):
+            a = alpha.clone().requires_grad_(True)
+            out = fn(a, mask)
+            graphs[name] = (a, out)
+        outs = [tuple(o.detach() for o in graphs[n][1]) for n in ("kernel", "plain")]
+        shape = f"{alpha.shape[0]}x{alpha.shape[1]}"
+        measure("neus_transmittance_forward", shape, "transmittance_fwd",
+                lambda: VR.neus_transmittance(alpha, mask),
+                lambda: VR.neus_transmittance_reference(alpha, mask), (alpha,), *outs,
+                library=lambda: torch.cumprod(alpha, dim=1))  # yardstick only
+
+        def backward(name):
+            a, out = graphs[name]
+            return torch.autograd.grad(out, a, cot, retain_graph=True)
+
+        grads = [backward(n) for n in ("kernel", "plain")]
+        measure("neus_transmittance_backward", shape, "transmittance_bwd",
+                lambda: backward("kernel"), lambda: backward("plain"), (alpha,), *grads)
+        for rnd, args in cases["importance"].items():
+            got, ref = VR.neus_importance(*args), VR.neus_importance_reference(*args)
+            measure("neus_importance", f"{rnd}_samples", "importance",
+                    lambda: VR.neus_importance(*args),
+                    lambda: VR.neus_importance_reference(*args), args,
+                    (got.z, got.mask), (ref.z, ref.mask))
+        results[K] = rows
+    return results
+
+
+def offsets_hyper_params():
+    """config/offsets_surfs/base_5.cfg at its full width, its schedule cut by
+    one factor (OFFSETS_SCALE): the phases' ends (2000, 3000, 45000), the
+    warmup (1000), the milestones (40000, 45000, 47500) and the run
+    (50000). Returns (hp, the cuts)."""
+    from volsurfs_tpu_torch.params.hyper_params import get_method_hyper_params
+
+    hp = get_method_hyper_params("offsets_surfs", OFFSETS_CFG)
+    cuts = {}
+    for name in ("init_phase_end_iter", "color_init_phase_end_iter", "first_phase_end_iter",
+                 "nr_warmup_iters", "training_end_iter"):
+        cuts[name] = [getattr(hp, name), round(getattr(hp, name) * OFFSETS_SCALE)]
+        setattr(hp, name, cuts[name][1])
+    cuts["lr_milestones"] = [list(hp.lr_milestones),
+                             [round(m * OFFSETS_SCALE) for m in hp.lr_milestones]]
+    hp.lr_milestones = cuts["lr_milestones"][1]
+    return hp, cuts
+
+
+def make_offsets(hp, device, seed):
+    from volsurfs_tpu_torch.methods.offsets_surfs import OffsetsSurfs
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+
+    return OffsetsSurfs(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=256,
+                        device=device, seed=seed)
+
+
+def phase_offsets_train(device, mv, run_dir, sdf_state):
+    """The offsets_surfs stage's training through Trainer.train from the surf
+    stage's SDF (phase 16): each phase's median step and losses, the
+    occupancy refreshes. Returns the trainer."""
+    from volsurfs_tpu_torch.params.params import TrainParams
+    from volsurfs_tpu_torch.training import callbacks as CB
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    hp, cuts = offsets_hyper_params()
+    t = time.perf_counter()
+    method = make_offsets(hp, device, seed=0).load_main_sdf(sdf_state)
+    timer = CB.StepTimerCallback(device)
+    trainer = Trainer(method, mv, run_dir, log_every=50, seed=0,
+                      train_params=TrainParams("offsets_surfs", TRAIN_CFG),
+                      callbacks=CB.CallbacksGroup([timer]))
+    refreshes = []
+    refresh = method.update_occupancy_grid
+
+    def recorded_refresh():
+        refresh()
+        refreshes.append([method.iter_nr, float(method.grid.occupancy_fraction())])
+
+    method.update_occupancy_grid = recorded_refresh
+    emit("offsets_setup", setup_s=time.perf_counter() - t, cuts=cuts, surfaces=method.nr_surfs,
+         main_surf_idx=method.main_surf_idx, delta_surfs=method.delta_surfs,
+         params={k: sum(p.numel() for p in m.parameters()) for k, m in method.models.items()},
+         rays_per_step=hp.training_rays_batch_size, lr=hp.lr)
+    phases, buckets, rgb = [], [], []
+
+    def log(it, m, losses):
+        # the timer has synchronised: reading the rgb loss costs no wait
+        phases.append(m.phase(it - 1))
+        buckets.append(trainer._rays_bucket)
+        rgb.append(float(losses["rgb"]) if "rgb" in losses else float("nan"))
+
+    t = time.perf_counter()
+    trainer.train(callback=log)
+    train_s = time.perf_counter() - t
+    del method.update_occupancy_grid
+    losses, step_ms = timer.losses(), np.asarray(timer.step_ms)
+    by_phase = {}
+    for name in ("offsets_init", "color_init", "first", "second"):
+        idx = np.asarray([i for i, p in enumerate(phases) if p == name])
+        timed = idx[2:] if len(idx) > 4 else idx  # the first steps of a phase compile nothing
+        by_phase[name] = dict(steps=len(idx), first=float(losses[idx[0]]),
+                              last=float(losses[idx[-1]]),
+                              mean_first_5=float(losses[idx[:5]].mean()),
+                              mean_last_5=float(losses[idx[-5:]].mean()),
+                              rgb_mean_last_5=float(np.mean(np.asarray(rgb)[idx[-5:]])),
+                              median_step_ms=float(np.median(step_ms[timed])))
+    result = dict(steps=len(losses), train_s=train_s, phases=by_phase, refreshes=refreshes,
+                  rays_bucket_by_step=buckets[::25],
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("offsets_train", **result)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"offsets_surfs: losses not finite: {losses.tolist()}")
+    init = by_phase["offsets_init"]
+    if not init["mean_last_5"] < init["mean_first_5"] or min(
+            p["steps"] for p in by_phase.values()) < 10 or not refreshes:
+        raise AssertionError(f"offsets_surfs: a phase short, the offsets-init loss did not "
+                             f"fall or no refresh: {result}")
+    return trainer
+
+
+def phase_offsets_stage(device, trainer, chunk):
+    """The rest of the offsets_surfs stage (phase 17): the checkpoint round
+    trip (a fresh OffsetsSurfs, other seed, renders test camera 0's rgb and
+    surfaces' opacities bit for bit alike), eval_split of the test split
+    and 3 profiled data steps."""
+    from volsurfs_tpu_torch.training import checkpoints
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    method, mv, run_dir = trainer.method, trainer.mv_data, trainer.run_dir
+    cam = mv["test"].cameras[0]
+    t = time.perf_counter()
+    path = trainer.save_checkpoint()
+    sync(device)
+    save_s = time.perf_counter() - t
+    fresh = make_offsets(method.hp, device, seed=1)
+    checkpoints.load_checkpoint(trainer.ckpt_dir, fresh)
+    reloaded = Trainer(fresh, mv, os.path.join(run_dir, "reloaded"))
+    ref = trainer.render_camera(cam, chunk)
+    got = reloaded.render_camera(cam, chunk)
+    result = dict(iter_nr=fresh.iter_nr, files=sorted(os.listdir(path)), bytes=dir_bytes(path),
+                  save_s=save_s, outputs={k: list(v.shape) for k, v in got.items()},
+                  render_equal=all(np.array_equal(got[k], ref[k]) for k in ref),
+                  max_abs_diff=max(float(np.abs(got[k] - ref[k]).max()) for k in ref),
+                  grid_equal=bool(torch.equal(fresh.grid.occupied, method.grid.occupied)))
+    emit("offsets_checkpoint", **result)
+    if (not (result["render_equal"] and result["grid_equal"]) or fresh.iter_nr != method.iter_nr
+            or got["surfs_alpha"].shape != (cam.height, cam.width, method.nr_surfs)):
+        raise AssertionError(f"offsets_surfs checkpoint round trip differs: {result}")
+    del fresh, reloaded
+
+    t = time.perf_counter()
+    means = trainer.eval_split("test", chunk_size=chunk)
+    emit("offsets_eval", split="test", cameras=len(mv["test"].cameras),
+         seconds=time.perf_counter() - t, bar_psnr=OFFSETS_PSNR_BAR, **means)
+    if not means["psnr"] > OFFSETS_PSNR_BAR:
+        raise AssertionError(f"offsets_surfs: test psnr {means['psnr']} <= {OFFSETS_PSNR_BAR}")
+    emit("offsets_train_profile", steps=PROFILED_STEPS, rays=trainer._rays_bucket,
+         train_phase=method.phase(method.iter_nr),
+         **profiled(trainer.train_iteration, PROFILED_STEPS, top=8))
+    return means
+
+
+def phase_offsets(device, mv, sdf_state):
+    """The main path offsets_stage (phases 16-17), with the counts reset.
+    Returns (its launches, the rays of its last step)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_offsets_run_")
+    reset_counts()  # the main path offsets_stage: train, checkpoint, evaluate, profile
+    trainer = phase_offsets_train(device, mv, run_tmp.name, sdf_state)
+    phase_offsets_stage(device, trainer, CHUNK_SURF)
+    counts = read_counts()
+    emit("offsets_stage_launches", **counts)
+    rays = trainer._rays_bucket
+    del trainer
+    run_tmp.cleanup()
+    torch.cuda.empty_cache()
+    return counts, rays
 
 
 def main():
@@ -1141,14 +1428,17 @@ def main():
     torch.cuda.empty_cache()
 
     k4, baked = phase_baked(device, smi, sass)
-    k6, k7, surf = phase_surf(device, reel, mv, resources)
+    k6, k7, surf, sdf_state, surf_rays = phase_surf(device, reel, mv, resources)
+    offsets, offsets_rays = phase_offsets(device, mv, sdf_state)
+    k8 = phase_volrender(device, resources, {1: surf_rays, 5: offsets_rays})
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: over the volsurfs stage (which begins with train_render), the
     # baked render path and the surf stage. K1 is off the surf path: K6's
     # backward accumulates the table's gradient itself
-    if surf["scatter_add"] != 0:
-        raise AssertionError(f"the surf stage launched K1 {surf['scatter_add']} times")
+    for path, counts_ in (("surf", surf), ("offsets_surfs", offsets)):
+        if counts_["scatter_add"] != 0:
+            raise AssertionError(f"the {path} stage launched K1 {counts_['scatter_add']} times")
     kernels = [
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
@@ -1188,8 +1478,9 @@ def main():
         kernels.append(dict(
             name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/permuto.cu",
             replaces="volsurfs_tpu/models/encodings.py:1039",
-            launches=surf[count], launches_by_path={"surf_stage": surf[count]},
-            plain_launches=surf[count + "_reference"],
+            launches=surf[count] + offsets[count],
+            launches_by_path={"surf_stage": surf[count], "offsets_stage": offsets[count]},
+            plain_launches=surf[count + "_reference"] + offsets[count + "_reference"],
             shape="data_step_49152_with_grads_and_points_grad", kernel=fn,
             registers=resources.get(fn, {}).get("registers"),
             entries_differ=k6["entries_differ"],
@@ -1202,11 +1493,34 @@ def main():
         name="occupancy_samples", route="cuda",
         source="volsurfs_tpu_torch/csrc/occupancy_sampler.cu",
         replaces="volsurfs_tpu/ops/samplers.py:105",
-        launches=surf["occupancy_sampler"],
-        launches_by_path={"surf_stage": surf["occupancy_sampler"]},
-        plain_launches=surf["occupancy_sampler_reference"], shape=k7["shape"],
+        launches=surf["occupancy_sampler"] + offsets["occupancy_sampler"],
+        launches_by_path={"surf_stage": surf["occupancy_sampler"],
+                          "offsets_stage": offsets["occupancy_sampler"]},
+        plain_launches=surf["occupancy_sampler_reference"]
+        + offsets["occupancy_sampler_reference"], shape=k7["shape"],
         registers=resources.get("occupancy_samples_kernel", {}).get("registers"),
         entries_differ=k7["entries_differ"], **{k: k7[k] for k in keys}))
+    # K8 at the offsets_surfs step's shapes (the k8_volrender lines hold both paths')
+    for kernel, count, plain, fn, line in (
+            ("combine_samples", "combine_samples", "combine_samples_reference",
+             "combine_samples_kernel", "volsurfs_tpu/ops/samples.py:148"),
+            ("neus_transmittance_forward", "neus_transmittance_fwd",
+             "neus_transmittance_reference", "neus_transmittance_forward_kernel",
+             "volsurfs_tpu/ops/volume_rendering.py:36"),
+            ("neus_transmittance_backward", "neus_transmittance_bwd",
+             "neus_transmittance_reference", "neus_transmittance_backward_kernel",
+             "volsurfs_tpu/ops/volume_rendering.py:36"),
+            ("neus_importance", "neus_importance", "neus_importance_reference",
+             "neus_importance_kernel", "volsurfs_tpu/ops/volume_rendering.py:137")):
+        row = k8[5][kernel]
+        kernels.append(dict(
+            name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/volrender.cu",
+            replaces=line, launches=surf[count] + offsets[count],
+            launches_by_path={"surf_stage": surf[count], "offsets_stage": offsets[count]},
+            plain_launches=surf[plain] + offsets[plain],
+            shape=f"{row['surfaces']}_surfaces_{row['rays']}_rays_{row['case']}", kernel=fn,
+            registers=resources.get(fn, {}).get("registers"),
+            entries_differ=row["entries_differ"], **{k: row[k] for k in keys}))
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:
         if (k["launches"] <= 0 or k["plain_launches"] != 0

@@ -549,3 +549,146 @@ def test_surf_steps_on_the_card(cuda, tmp_path):
     assert min(counts["permuto_fwd"], counts["permuto_bwd"], counts["occupancy_sampler"]) > 0
     assert counts["scatter_add"] == 0, counts
     assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts
+
+
+# ---- K8: combine, the transmittance scan and importance sampling -----------
+
+
+def _combine_outputs(samples, values):
+    return (samples.z, samples.mask, samples.dt, samples.max_dt) + (
+        () if values is None else (values,))
+
+
+def _check_k8(kind, got, ref):
+    from volsurfs_tpu_torch import kernel_bench as kb
+
+    torch.cuda.synchronize()
+    result = kb.k8_check(kind, got, ref)
+    assert result["ok"], (kind, result)
+    return result
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_combine_kernel_matches_plain_bit_for_bit(cuda, K):
+    """K8a at the three merges of a surf (K = 1, 512 rays) and an
+    offsets_surfs (K = 5, 2,048 rays) data step, with equal and near-equal
+    depths and empty rows (kernel_bench.k8_cases): every output bit for
+    bit."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import samples as TS
+
+    for merge, (a, b, va, vb) in kb.k8_cases(cuda, K)["combine"].items():
+        got = TS.combine(a, b, 1e-4, va, vb)
+        ref = TS.combine_reference(a, b, 1e-4, va, vb)
+        _check_k8("combine", _combine_outputs(*got), _combine_outputs(*ref))
+
+
+def test_combine_kernel_edge_rows(cuda):
+    """K8a on rows of one depth repeated, of samples all within the minimum
+    distance, of one sample, of none on either side, and on a row longer
+    than the static shared memory of 32 rays holds (fewer threads a block):
+    bit for bit."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import samples as TS
+
+    rng = np.random.default_rng(3)
+    for Sa, Sb in ((8, 8), (200, 100)):
+        count_a = rng.integers(0, Sa + 1, (64, 1))
+        count_a[:4] = [[0], [1], [Sa], [Sa]]
+        a = kb.k8_samples(cuda, rng, 64, Sa, count_a)
+        b = kb.k8_samples(cuda, rng, 64, Sb, rng.integers(0, Sb + 1, (64, 1)))
+        za, zb = a.z.clone(), b.z.clone()
+        za[2] = torch.where(a.mask[2], 1.5, za[2])  # one depth repeated
+        zb[2] = torch.where(b.mask[2], 1.5, zb[2])
+        za[3] = torch.where(a.mask[3], 1.5 + 1e-6 * torch.arange(Sa, device=cuda), za[3])
+        a, b = TS.update_dt(a.replace(z=za)), TS.update_dt(b.replace(z=zb))
+        va = torch.randn(64, Sa, 3, device=cuda)
+        vb = torch.randn(64, Sb, 3, device=cuda)
+        got = TS.combine(a, b, 1e-4, va, vb)
+        ref = TS.combine_reference(a, b, 1e-4, va, vb)
+        _check_k8("combine", _combine_outputs(*got), _combine_outputs(*ref))
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_transmittance_kernel_matches_plain_autograd(cuda, K):
+    """K8b on [K x R, 96] rows whose alphas reach 1 (R the path's rays,
+    kernel_bench.K8_RAYS): the forward's weights, transmittance and
+    background transmittance, and the backward from cotangents on all
+    three, against the plain version under autograd (kernel_bench.k8_check's
+    tolerances)."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    alpha, mask = kb.k8_cases(cuda, K)["transmittance"]
+    cot = [torch.randn(alpha.shape, device=cuda), torch.randn(alpha.shape, device=cuda),
+           torch.randn(alpha.shape[0], 1, device=cuda)]
+    outs, grads = [], []
+    for fn in (VR.neus_transmittance, VR.neus_transmittance_reference):
+        a = alpha.clone().requires_grad_(True)
+        out = fn(a, mask)
+        sum(torch.sum(o * c) for o, c in zip(out, cot)).backward()
+        outs.append(tuple(o.detach() for o in out))
+        grads.append((a.grad,))
+    _check_k8("transmittance_fwd", *outs)
+    _check_k8("transmittance_bwd", *grads)
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_importance_kernel_matches_plain(cuda, K):
+    """K8c at both rounds of a data step (64 and 80 samples, 16 new depths,
+    with and without jitter), K surfaces at the path's rays
+    (kernel_bench.K8_RAYS): the masks equal, the depths by
+    kernel_bench.k8_check's tolerance."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    for samples, sdfs, beta, n, jitter in kb.k8_cases(cuda, K)["importance"].values():
+        for jit in (jitter, None):
+            got = VR.neus_importance(samples, sdfs, beta, n, jit)
+            ref = VR.neus_importance_reference(samples, sdfs, beta, n, jit)
+            _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
+
+
+def test_offsets_surfs_steps_on_the_card(cuda, tmp_path):
+    """tests/test_offsets_surfs_e2e.py's configuration (permutohash, 3
+    surfaces) for its 36 steps through Trainer.train, every phase, then a
+    render of a test camera: finite losses and frame, every surface's
+    opacity, and the path launched K6, K7 and K8's kernels, no plain
+    version."""
+    from volsurfs_tpu_torch.methods.offsets_surfs import OffsetsSurfs
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops import samples as TS
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsOffsetsSuRFs
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    modules = (P.launches, SP.launches, TS.launches, VR.launches)
+    for counts in modules:
+        for key in counts:
+            counts[key] = 0
+    hp = HyperParamsOffsetsSuRFs(
+        is_nr_training_rays_dynamic=False, training_rays_batch_size=48,
+        max_nr_samples_per_ray=12, max_nr_imp_samples_per_ray=8, do_importance_sampling=True,
+        init_phase_end_iter=8, color_init_phase_end_iter=16, first_phase_end_iter=30,
+        training_end_iter=36, nr_warmup_iters=4, lr=3e-3, lr_milestones=[10000],
+        nr_inner_surfs=1, nr_outer_surfs=1, eikonal_weight=0.04,
+        support_surfs_eikonal_weight=0.04, offsurface_weight=1e-4, curvature_weight=0.0,
+        geom_feat_size=16, sdf_nr_iters_for_c2f=0)
+    mv = MVDataset("synthetic", "sphere", "",
+                   config={"width": 24, "height": 24, "nr_train_cameras": 4,
+                           "nr_test_cameras": 1})
+    method = OffsetsSurfs(hp, make_bounding_sphere(1.0), occupancy_res=16, device=cuda)
+    trainer = Trainer(method, mv, str(tmp_path))
+    losses = []
+    trainer.train(callback=lambda it, m, l: losses.append(float(l["loss"])))
+    assert len(losses) == 36 and np.isfinite(losses).all() and losses[7] < losses[0]
+    out = trainer.render_camera(mv["test"].cameras[0])
+    assert out["rgb"].shape == (24, 24, 3) and np.isfinite(out["rgb"]).all()
+    assert out["surfs_alpha"].shape == (24, 24, 3)
+    counts = {k: v for c in modules for k, v in c.items()}
+    assert min(counts[k] for k in ("permuto_fwd", "permuto_bwd", "occupancy_sampler",
+                                   "combine_samples", "neus_transmittance_fwd",
+                                   "neus_transmittance_bwd", "neus_importance")) > 0, counts
+    assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts

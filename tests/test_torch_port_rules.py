@@ -75,6 +75,7 @@ def test_port_imports_with_jax_blocked():
         "import volsurfs_tpu_torch.models.field_utils, volsurfs_tpu_torch.ops.permuto\n"
         "import volsurfs_tpu_torch.ops.samplers, volsurfs_tpu_torch.ops.volume_rendering\n"
         "import volsurfs_tpu_torch.ops.occupancy, volsurfs_tpu_torch.ops.samples\n"
+        "import volsurfs_tpu_torch.methods.offsets_surfs\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -186,3 +187,46 @@ def test_cpu_tensors_take_the_plain_permuto_and_sampler():
                           "permuto_bwd": 0, "permuto_bwd_reference": 1}
     assert SP.launches == {"occupancy_sampler": 0, "occupancy_sampler_reference": 1}
     assert S.launches == {"scatter_add": 0, "scatter_add_reference": 1}
+
+
+def test_offsets_surfs_without_device_needs_cuda(monkeypatch):
+    """OffsetsSurfs' default device is CUDA; without it the constructor
+    raises instead of training on the CPU."""
+    from volsurfs_tpu_torch.methods.offsets_surfs import OffsetsSurfs
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsOffsetsSuRFs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        OffsetsSurfs(HyperParamsOffsetsSuRFs(), make_bounding_sphere(1.0))
+
+
+def test_cpu_tensors_take_the_plain_volume_rendering_kernels():
+    """K8a (combine), K8b (the transmittance scan, forward and backward)
+    and K8c (importance sampling) on CPU tensors run their plain
+    versions."""
+    from volsurfs_tpu_torch.ops import samples as TS
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    for counts in (TS.launches, VR.launches):
+        for key in counts:
+            counts[key] = 0
+    z = torch.tensor([[1.0, 1.5, 2.0, 1e10]])
+    mask = torch.tensor([[True, True, True, False]])
+    one = torch.ones(1, 1)
+    a = TS.RaySamples(z=z, dt=torch.zeros_like(z), mask=mask, rays_o=torch.zeros(1, 3),
+                      rays_d=torch.tensor([[0.0, 0.0, 1.0]]), t_near=one, t_far=3 * one,
+                      max_dt=0.5 * one)
+    a = TS.update_dt(a)
+    merged, _ = TS.combine(a, a, 1e-4)
+    assert merged.mask.sum() == 3 and merged.z.shape == (1, 8)
+    alpha = torch.full((1, 4), 0.5, requires_grad=True)
+    w, _, _ = VR.neus_weights(a, alpha)
+    w.sum().backward()
+    assert alpha.grad is not None
+    imp = VR.neus_importance(a, torch.stack([2.0 - z, 1.8 - z], dim=-1), 20.0, 4)
+    assert bool(imp.mask.all()) and imp.z.shape == (1, 4)
+    assert TS.launches == {"combine_samples": 0, "combine_samples_reference": 1}
+    assert VR.launches == {"neus_transmittance_fwd": 0, "neus_transmittance_bwd": 0,
+                           "neus_transmittance_reference": 3, "neus_importance": 0,
+                           "neus_importance_reference": 1}

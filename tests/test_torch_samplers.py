@@ -214,3 +214,101 @@ def test_volume_rendering_matches_jax(monkeypatch):
                                     None if jitter is None else torch.from_numpy(jitter))
         np.testing.assert_array_equal(imp.mask.numpy(), np.asarray(imp_ref.mask))
         np.testing.assert_allclose(imp.z.numpy(), np.asarray(imp_ref.z), rtol=1e-5, atol=1e-5)
+
+
+def test_combine_of_the_offsets_paths_shape_matches_jax():
+    """combine (K8a's plain version) at the offsets_surfs path's first merge:
+    64 + 16 slots carrying K = 5 SDF values, with depths closer than the
+    minimum distance, equal depths (a before b), empty rows on either side
+    and rows of only invalid slots: exact."""
+    rng = np.random.default_rng(8)
+    n = 256
+    o, d = np.zeros((n, 3), np.float32), np.tile(np.float32([[0, 0, 1]]), (n, 1))
+    t0, t1 = np.full((n, 1), 1.0, np.float32), np.full((n, 1), 3.0, np.float32)
+    za, ma, dta = _sample_pair(rng, n, 64, 1.0, 3.0)
+    zb, mb, dtb = _sample_pair(rng, n, 16, 1.0, 3.0)
+    zb[:, :3] = np.where(mb[:, :3] & ma[:, :3], za[:, :3] + 3e-5, zb[:, :3])
+    zb[:, 3:5] = np.where(mb[:, 3:5] & ma[:, 3:5], za[:, 3:5], zb[:, 3:5])  # equal depths
+    zb = np.sort(zb, axis=1)
+    ma[:8], mb[8:16] = False, False  # empty rows
+    ma[16:20], mb[16:20] = False, False
+    za, zb = np.where(ma, za, JS.INVALID_Z), np.where(mb, zb, JS.INVALID_Z)
+    ja, ta = _both_samples(o, d, t0, t1, za.astype(np.float32), ma, dta)
+    jb, tb = _both_samples(o, d, t0, t1, zb.astype(np.float32), mb, dtb)
+    va = rng.standard_normal((n, 64, 5)).astype(np.float32)
+    vb = rng.standard_normal((n, 16, 5)).astype(np.float32)
+    ref, ref_v = JS.combine(ja, jb, 1e-4, jnp.asarray(va), jnp.asarray(vb))
+    got, got_v = TS.combine(ta, tb, 1e-4, torch.from_numpy(va), torch.from_numpy(vb))
+    for name in ("z", "dt", "mask", "max_dt"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+    assert 0 < got.mask.numpy().sum() < ma.sum() + mb.sum()  # the chain dropped some
+
+
+def test_neus_importance_at_five_surfaces_matches_jax(monkeypatch):
+    """neus_importance (K8c's plain version) at K = 5 surfaces: its CDF
+    (``neus_cdf``) against offsets_surfs' ``_avg_cdf`` (VR_TOL: the scans
+    and the average over the surfaces sum in another order), and the
+    depths against ``importance_sample`` of that CDF, with and without
+    jitter (the masks exact, the depths 1e-5, as above)."""
+    from types import SimpleNamespace
+
+    from volsurfs_tpu.methods.offsets_surfs import OffsetsSurfs as JOffsetsSurfs
+
+    rng = np.random.default_rng(9)
+    n, s, K = 300, 40, 5
+    o, d, t0, t1 = _rays(rng, n)
+    t1 = np.maximum(t1, t0 + 0.5)
+    z, mask, max_dt = _sample_pair(rng, n, s, 0.0, 1.0)
+    z = np.where(mask, t0 + z * (t1 - t0), z).astype(np.float32)
+    jsamp, tsamp = _both_samples(o, d, t0, t1, z, mask, max_dt * (t1 - t0))
+    base = 1.0 - z / t1 + 0.05 * rng.standard_normal(z.shape)
+    offsets = np.float32([0.12, 0.08, 0.04, 0.0, -0.04])
+    sdfs = (base[..., None] + offsets).astype(np.float32)
+    beta = np.float32(18.5)
+    ref_cdf = JOffsetsSurfs._avg_cdf(SimpleNamespace(nr_surfs=K), jsamp, jnp.asarray(sdfs), beta)
+    cdf = TVR.neus_cdf(tsamp, torch.from_numpy(sdfs), float(beta))
+    np.testing.assert_allclose(cdf.numpy(), np.asarray(ref_cdf), **VR_TOL)
+    for jitter in (None, rng.uniform(-0.5, 0.5, (n, 16)).astype(np.float32)):
+        key = None
+        if jitter is not None:
+            _fed_uniform(monkeypatch, [jitter])
+            key = jax.random.PRNGKey(0)
+        ref = JVR.importance_sample(jsamp, ref_cdf, 16, key)
+        got = TVR.neus_importance(tsamp, torch.from_numpy(sdfs), float(beta), 16,
+                                  None if jitter is None else torch.from_numpy(jitter))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+        np.testing.assert_allclose(got.z.numpy(), np.asarray(ref.z), rtol=1e-5, atol=1e-5)
+
+
+def test_neus_transmittance_backward_matches_jax_grad():
+    """The transmittance scan's gradient (K8b's plain version under
+    autograd) against jax.grad of JAX's ``neus_weights``, with cotangents
+    on the weights, the transmittance and the background transmittance, on
+    rows where alpha reaches 1 (the factors then 1e-6, and their products
+    underflow to 0): 1e-5 relative + 1e-7."""
+    rng = np.random.default_rng(10)
+    n, s = 200, 48
+    o, d, t0, t1 = _rays(rng, n)
+    t1 = np.maximum(t1, t0 + 0.5)
+    z, mask, max_dt = _sample_pair(rng, n, s, 0.0, 1.0)
+    z = np.where(mask, t0 + z * (t1 - t0), z).astype(np.float32)
+    jsamp, tsamp = _both_samples(o, d, t0, t1, z, mask, max_dt * (t1 - t0))
+    alpha = rng.uniform(0.0, 0.3, (n, s)).astype(np.float32)
+    hard = rng.uniform(0, 1, (n, s)) < 0.15
+    alpha[hard] = 1.0  # opaque samples
+    alpha[: n // 4, 2:12] = 1.0  # rows that turn opaque, underflowing past ~7 of them
+    g_w, g_T = (rng.standard_normal((n, s)).astype(np.float32) for _ in range(2))
+    g_bg = rng.standard_normal((n, 1)).astype(np.float32)
+
+    def jax_loss(a):
+        w, t, bg = JVR.neus_weights(jsamp, a)
+        return jnp.sum(w * g_w) + jnp.sum(t * g_T) + jnp.sum(bg * g_bg)
+
+    ref = jax.grad(jax_loss)(jnp.asarray(alpha))
+    a = torch.from_numpy(alpha).requires_grad_(True)
+    w, t, bg = TVR.neus_weights(tsamp, a)
+    (torch.sum(w * torch.from_numpy(g_w)) + torch.sum(t * torch.from_numpy(g_T))
+     + torch.sum(bg * torch.from_numpy(g_bg))).backward()
+    assert np.abs(np.asarray(ref)).max() > 1.0 and (t.detach().numpy() == 0).any()
+    np.testing.assert_allclose(a.grad.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-7)

@@ -210,7 +210,7 @@ def test_callbacks_read_losses_only_at_their_cadence(tmp_path):
 
 
 def test_unported_methods_name_their_queue_item():
-    for name, item in (("offsets_surfs", 6), ("nerf", 8)):
+    for name, item in (("nerf", 8),):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             TT.make_method(name, None, None, "white")
 

@@ -38,7 +38,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     # the kernels must round as separate IEEE products and sums, as their
     # plain versions do (see csrc/bvh_trace.cu, csrc/shade.cu, csrc/permuto.cu,
-    # csrc/occupancy_sampler.cu)
+    # csrc/occupancy_sampler.cu, csrc/volrender.cu)
     "-fmad=false",
 ]
 GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
@@ -60,6 +60,12 @@ _KERNEL_SIGNATURES = {
     },
     "occupancy_sampler.cu": {
         "vs_occupancy_samples": (_I, [_P] * 11 + [_F, _F, _F, _I, _I, _I, _I, _F, _I, _LL, _P]),
+    },
+    "volrender.cu": {
+        "vs_combine_samples": (_I, [_P] * 9 + [_F] + [_P] * 5 + [_I, _I, _I, _LL, _P]),
+        "vs_neus_transmittance_forward": (_I, [_P] * 5 + [_I, _LL, _P]),
+        "vs_neus_transmittance_backward": (_I, [_P] * 7 + [_I, _LL, _P]),
+        "vs_neus_importance": (_I, [_P] * 5 + [_F, _P, _P, _I, _I, _I, _LL, _P]),
     },
     "shade.cu": {
         "vs_shade_composite": (_I, [_P] * 10 + [_I, _I, _LL, _I, _P, _P, _P]),

@@ -1,8 +1,8 @@
 """Times the port's CUDA kernels at the shapes of the volsurfs main path.
 
-    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6]
+    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6] [k8]
 
-(all three without arguments):
+(all four without arguments):
 
 - K1 ``scatter_add_rows``: one HashGrid2D backward of the train step (16
   levels x 4 lerp corners x 512 rays x 4 hash corners, F=2, into the
@@ -17,7 +17,12 @@
   with and without grads, nothing saved for a backward; and one
   differentiable lookup with grads (``permuto_lookup``, the curvature
   term's) at 49,152 samples, forward and backward into the table and the
-  points, whatever kernels the tree's backward takes.
+  points, whatever kernels the tree's backward takes;
+- K8 (``csrc/volrender.cu``) at the surf and offsets_surfs data steps'
+  shapes (512 rays, 64 + 16 + 16 samples, K = 1 or 5 surfaces, inputs from
+  ``k8_cases``): ``combine`` at each of a step's three merges, the
+  transmittance scan forward and backward on [K x 512, 96] rows and each
+  round of ``neus_importance``.
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 shape) with ``ms`` (median of CUDA-event timings of one call) and
@@ -251,6 +256,150 @@ def k6_inputs(device, n, seed=0):
     return enc, unit.contiguous(), rng
 
 
+# the surf and offsets_surfs data steps' samples: 64 a ray in the occupied
+# space and two rounds of 16 importance samples (config/surf/base.cfg,
+# config/offsets_surfs/base_5.cfg)
+K8_UNIFORM, K8_IMP = 64, 16
+# the rays a data step takes, by the number of surfaces: surf stays at its
+# configured 512; offsets_surfs' dynamic count settles on the 2,048-ray
+# bucket from its first phase on (chip_smoke.py's offsets_train line,
+# rays_bucket_by_step). chip_smoke.py passes the buckets its paths ran.
+K8_RAYS = {1: TRAIN_RAYS, 5: 4 * TRAIN_RAYS}
+K8_OFFSETS = (0.12, 0.08, 0.04, 0.02, 0.0)  # the base_5 surfaces' offsets of the main SDF
+
+
+def k8_samples(device, rng, R, S, count=None):
+    """RaySamples of R rays in [1, 3]: a sorted valid prefix of
+    rng-drawn length in each row (count [R, 1] if given), every 16th ray
+    empty, INVALID_Z after it; dt by update_dt."""
+    from volsurfs_tpu_torch.ops import samples as TS
+
+    z = np.sort(rng.uniform(1.0, 3.0, (R, S)), axis=1).astype(np.float32)
+    if count is None:
+        count = rng.integers(S // 4, S + 1, (R, 1))
+        count[::16] = 0
+    mask = np.arange(S)[None, :] < count
+    z = np.where(mask, z, TS.INVALID_Z).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    samples = TS.RaySamples(
+        z=t(z), dt=torch.zeros(R, S, device=device), mask=t(mask),
+        rays_o=t(np.zeros((R, 3), np.float32)),
+        rays_d=t(np.tile(np.float32([[0.0, 0.0, 1.0]]), (R, 1))),
+        t_near=t(np.ones((R, 1), np.float32)), t_far=t(np.full((R, 1), 3.0, np.float32)),
+        max_dt=t(rng.uniform(0.01, 0.04, (R, 1)).astype(np.float32)))
+    return TS.update_dt(samples)
+
+
+def k8_cases(device, K, R=None, seed=0):
+    """The inputs of K8's kernels at a data step of K surfaces (1: surf, 5:
+    offsets_surfs) and R rays (K8_RAYS[K] if None): {"combine": {merge:
+    (a, b, values_a, values_b)}, "transmittance": (alpha [K*R, 96], mask),
+    "importance": {round: (samples, sdfs [R, S, K], beta, n, jitter)}}.
+    The first merge's second set repeats some of the first's depths exactly
+    and some within the minimum distance; the alphas reach 1; the SDFs
+    cross 0 along the rays, one surface a shifted copy of another."""
+    R = K8_RAYS[K] if R is None else R
+    rng = np.random.default_rng(seed)
+    uniform = k8_samples(device, rng, R, K8_UNIFORM)
+    full = np.full((R, 1), K8_IMP)
+    full[::16] = 0
+    imp1, imp2 = (k8_samples(device, rng, R, K8_IMP, full) for _ in range(2))
+    # depths of the first merge's b: some equal to a's, some 3e-5 behind
+    z = imp1.z.clone()
+    both = uniform.mask[:, :4] & imp1.mask[:, :4]
+    z[:, :2] = torch.where(both[:, :2], uniform.z[:, :2], z[:, :2])
+    z[:, 2:4] = torch.where(both[:, 2:4], uniform.z[:, 2:4] + 3e-5, z[:, 2:4])
+    imp1 = imp1.replace(z=torch.sort(z, dim=1).values)
+
+    def sdfs(samples):
+        base = 2.0 - samples.z + 0.02 * torch.from_numpy(
+            rng.standard_normal(tuple(samples.z.shape)).astype(np.float32)).to(device)
+        return (base[..., None] + torch.tensor(K8_OFFSETS[5 - K:], device=device)).contiguous()
+
+    v_u, v_1 = sdfs(uniform), sdfs(imp1)
+    combined = k8_samples(device, rng, R, K8_UNIFORM + K8_IMP)
+    imp = k8_samples(device, rng, R, 2 * K8_IMP)
+    S = K8_UNIFORM + 2 * K8_IMP
+    alpha = rng.uniform(0.0, 0.4, (K * R, S)).astype(np.float32)
+    alpha[rng.uniform(0, 1, alpha.shape) < 0.05] = 1.0
+    mask = np.arange(S)[None, :] < rng.integers(0, S + 1, (R, 1))
+    jitter = lambda: torch.from_numpy(  # noqa: E731
+        rng.uniform(-0.5, 0.5, (R, K8_IMP)).astype(np.float32)).to(device)
+    return {
+        "combine": {f"{K8_UNIFORM}+{K8_IMP}": (uniform, imp1, v_u, v_1),
+                    f"{K8_IMP}+{K8_IMP}": (imp1, imp2, None, None),
+                    f"{K8_UNIFORM}+{2 * K8_IMP}": (uniform, imp, None, None)},
+        "transmittance": (torch.from_numpy(alpha).to(device),
+                          torch.from_numpy(np.tile(mask, (K, 1))).to(device)),
+        "importance": {f"{K8_UNIFORM}": (uniform, v_u, 18.5, K8_IMP, jitter()),
+                       f"{K8_UNIFORM + K8_IMP}": (combined, sdfs(combined), 37.0, K8_IMP,
+                                                  jitter())},
+    }
+
+
+def k8_check(kind, got, ref):
+    """K8's kernel outputs (got) against its plain version's (ref), as
+    tuples of tensors in the same order, by the tolerance of each kind:
+
+    - "combine": bit for bit (it moves and compares values only);
+    - "transmittance_fwd": |got - ref| <= 1e-5 |ref| + 1e-7 (the kernel
+      multiplies in order, the plain cumprod as a scan: a few float32
+      roundings of a product of <= 96 factors);
+    - "transmittance_bwd": |got - ref| <= 1e-4 |ref| + 1e-5 max|ref| (the
+      reverse recurrence against autograd's cumprod backward, which divides
+      by the factors, 1e-6 where alpha is 1);
+    - "importance": the masks equal; the depths within 1e-4 but for at
+      most 1 in 1,000, and every one within 0.05, under a sample's spacing
+      (the CDFs agree within a few float32 roundings, and a target on a flat
+      stretch of the CDF, where the weights are ~0, moves along it).
+
+    Returns {"max_abs_err", "ok", "entries_differ"}."""
+    errs = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
+    max_abs = max(float(e.max()) if e.numel() else 0.0 for e in errs)
+    differ = sum(int((g != r).sum()) for g, r in zip(got, ref))
+    if kind == "combine":
+        ok = all(torch.equal(g, r) for g, r in zip(got, ref))
+    elif kind == "transmittance_fwd":
+        ok = all(bool((e <= 1e-5 * r.abs() + 1e-7).all()) for e, r in zip(errs, ref))
+    elif kind == "transmittance_bwd":
+        ok = all(bool((e <= 1e-4 * r.abs() + 1e-5 * float(r.abs().max())).all())
+                 for e, r in zip(errs, ref))
+    elif kind == "importance":
+        (z, mask), (ref_z, ref_mask) = got, ref
+        z_err = (z - ref_z).abs()[ref_mask]
+        beyond = float((z_err > 1e-4).float().mean()) if z_err.numel() else 0.0
+        ok = torch.equal(mask, ref_mask) and beyond <= 1e-3 and max_abs <= 0.05
+    else:
+        raise ValueError(kind)
+    return {"max_abs_err": max_abs, "ok": bool(ok), "entries_differ": differ}
+
+
+def bench_k8(device, smi):
+    from volsurfs_tpu_torch.ops import samples as TS
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    for K in (1, 5):
+        cases = k8_cases(device, K)
+        for merge, (a, b, va, vb) in cases["combine"].items():
+            _bench_line("k8a_combine", lambda: TS.combine(a, b, 1e-4, va, vb), smi, surfaces=K,
+                        rays=K8_RAYS[K], merge=merge)
+        alpha, mask = cases["transmittance"]
+        _bench_line("k8b_transmittance_fwd", lambda: VR.neus_transmittance(alpha, mask), smi,
+                    rows=alpha.shape[0], samples=alpha.shape[1])
+        a = alpha.clone().requires_grad_(True)
+        g = torch.ones_like(alpha)
+
+        def fwd_bwd():
+            w, _, _ = VR.neus_transmittance(a, mask)
+            return torch.autograd.grad(w, a, g)
+
+        _bench_line("k8b_transmittance_fwd_bwd", fwd_bwd, smi, rows=alpha.shape[0],
+                    samples=alpha.shape[1])
+        for rnd, args in cases["importance"].items():
+            _bench_line("k8c_importance", lambda: VR.neus_importance(*args), smi, surfaces=K,
+                        rays=K8_RAYS[K], samples=int(rnd))
+
+
 def _bench_line(bench, fn, smi, **fields):
     split = device_times(fn)
     print(json.dumps({"bench": bench, **fields, "ms": time_ms(fn),
@@ -296,7 +445,7 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA card")
-    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6"}
+    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6", "k8"}
     device = torch.device("cuda")
     smi = card()
     print(smi, flush=True)
@@ -313,6 +462,8 @@ def main(argv=None):
         stacked.check_step_cap()
     if "k6" in which:
         bench_k6(device, smi)
+    if "k8" in which:
+        bench_k8(device, smi)
 
 
 if __name__ == "__main__":

@@ -4,10 +4,11 @@ background.
 
 A train step samples each ray inside the occupied space of the occupancy
 grid (kernel K7), refines the samples by two rounds of SDF importance
-sampling (without gradients), evaluates the SDF with its analytic spatial
-gradient (the permutohedral encoder's Jacobian, kernel K6, carried through
-the MLP) and the SH colour field at the samples, and composites them with
-NeuS alphas. The table gradients of both fields go through kernel K1. The
+sampling (without gradients; kernels K8c and K8a), evaluates the SDF with
+its analytic spatial gradient (the permutohedral encoder's Jacobian, kernel
+K6, carried through the MLP) and the SH colour field at the samples, and
+composites them with NeuS alphas (the transmittance scan is kernel K8b). K6's
+backward accumulates both fields' table gradients. The
 first ``init_phase_end_iter`` steps fit the SDF to a sphere instead. The
 variance and cos-anneal schedules are numpy float32 scalars of ``iter_nr``.
 
@@ -36,7 +37,6 @@ from volsurfs_tpu_torch.models.field_utils import get_field_gradients, get_sdf_c
 from volsurfs_tpu_torch.models.fields import RGB, SDF, ColorSH
 from volsurfs_tpu_torch.ops import raycast as RC
 from volsurfs_tpu_torch.ops import samplers as SP
-from volsurfs_tpu_torch.ops import samples as S
 from volsurfs_tpu_torch.ops import volume_rendering as VR
 from volsurfs_tpu_torch.ops.occupancy import make_grid
 from volsurfs_tpu_torch.utils import losses as L
@@ -159,30 +159,14 @@ class Surf:
         if not hp.do_importance_sampling:
             return uniform
 
-        beta = self._beta(iter_nr)
         n_imp = hp.max_nr_imp_samples_per_ray
-
-        def weights_cdf(samples, sdf, beta_value):
-            alpha = VR.sdf2alpha(samples, sdf, beta_value)
-            w, _, _ = VR.neus_weights(samples, alpha)
-            _, w_sum = VR.sum_over_rays(w, samples.mask)
-            return VR.compute_cdf(w / torch.clamp(w_sum, min=1e-6), samples.mask)
 
         def imp_jitter():
             return self._uniform((R, n_imp // 2), -0.5, 0.5) if jitter else None
 
-        with torch.no_grad():
-            sdf_u = self._sdf(uniform.positions(), iter_nr)[0][..., 0]
-            cdf = weights_cdf(uniform, sdf_u, float(np.float32(beta) / np.float32(2.0)))
-            imp1 = VR.importance_sample(uniform, cdf, n_imp // 2, imp_jitter())
-            sdf_i1 = self._sdf(imp1.positions(), iter_nr)[0][..., 0]
-            combined1, comb_sdf = S.combine(uniform, imp1, hp.min_dist_between_samples,
-                                            sdf_u[..., None], sdf_i1[..., None])
-            cdf2 = weights_cdf(combined1, comb_sdf[..., 0], beta)
-            imp2 = VR.importance_sample(combined1, cdf2, n_imp // 2, imp_jitter())
-            imp, _ = S.combine(imp1, imp2, hp.min_dist_between_samples)
-            final, _ = S.combine(uniform, imp, hp.min_dist_between_samples)
-        return final
+        return SP.importance_refine(uniform, lambda s: self._sdf(s.positions(), iter_nr)[0],
+                                    self._beta(iter_nr), n_imp, hp.min_dist_between_samples,
+                                    imp_jitter)
 
     # ---- rendering ------------------------------------------------------------
 

@@ -24,6 +24,19 @@ def get_field_gradients(field_fn, points, eps: float = 1e-4):
     return torch.movedim(grad, 0, -1)[..., 0, :]
 
 
+def get_fields_gradients(fields_fn, points, eps: float = 1e-4):
+    """Forward differences of a K-output field: fields_fn maps [..., 3] to
+    [..., K] (or a tuple led by it); returns [..., K, 3]."""
+    offsets = torch.tensor([[0.0, 0.0, 0.0], [eps, 0.0, 0.0], [0.0, eps, 0.0], [0.0, 0.0, eps]],
+                           dtype=points.dtype, device=points.device)
+    vals = []
+    for off in offsets:
+        res = fields_fn(points + off)
+        vals.append(res[0] if isinstance(res, tuple) else res)
+    vals = torch.stack(vals, dim=0)  # [4, ..., K]
+    return torch.movedim((vals[1:] - vals[0:1]) / eps, 0, -1)
+
+
 def get_sdf_curvature(field_fn, points, sdf_gradients, rand_dirs, eps: float = 1e-4,
                       grad_fn=None):
     """Angle / pi between the normal at each point and at the point moved

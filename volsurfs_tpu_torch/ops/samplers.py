@@ -17,6 +17,9 @@ and a target within an ulp of a step's end can move a sample by a step or
 flip its mask. The kernel counts with warp ballots and places the targets
 by a binary search of the same products, so it equals the plain version bit
 for bit.
+
+``importance_refine`` adds the NeuS samplers' two rounds of importance
+sampling to the occupied-space samples (K8c and K8a on the card).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 import torch
 
 from volsurfs_tpu_torch import _build
+from volsurfs_tpu_torch.ops import samples as TS
+from volsurfs_tpu_torch.ops import volume_rendering as VR
 from volsurfs_tpu_torch.ops.samples import INVALID_Z, RaySamples, update_dt
 
 # launch counts: the CUDA kernel's and the plain version's
@@ -183,3 +188,24 @@ def compute_samples_fg_in_occupied_regions(
     out = RaySamples(z=z, dt=torch.zeros_like(z), mask=mask, rays_o=rays_o, rays_d=rays_d,
                      t_near=t0, t_far=t1, max_dt=const_dist)
     return update_dt(out, is_background=False)
+
+
+def importance_refine(uniform: RaySamples, sdfs_at, logistic_beta, nr_imp_samples: int,
+                      min_dist_between_samples: float, jitter_fn) -> RaySamples:
+    """The NeuS samplers' two rounds of importance sampling, without
+    gradient: n/2 depths from the SDFs of the uniform samples at half the
+    beta, the uniform samples merged with them (the SDFs carried along),
+    n/2 more from the merged set at the beta, then the new depths merged
+    and merged into the uniform samples (kernels K8c and K8a on the card).
+    sdfs_at(samples) gives the SDFs [R, S, K] (K surfaces) at the samples;
+    jitter_fn() a round's jitter [R, n/2] or None."""
+    half = nr_imp_samples // 2
+    with torch.no_grad():
+        sdfs_u = sdfs_at(uniform)
+        imp1 = VR.neus_importance(uniform, sdfs_u, logistic_beta / 2.0, half, jitter_fn())
+        combined, comb_sdfs = TS.combine(uniform, imp1, min_dist_between_samples, sdfs_u,
+                                         sdfs_at(imp1))
+        imp2 = VR.neus_importance(combined, comb_sdfs, logistic_beta, half, jitter_fn())
+        imp, _ = TS.combine(imp1, imp2, min_dist_between_samples)
+        final, _ = TS.combine(uniform, imp, min_dist_between_samples)
+    return final

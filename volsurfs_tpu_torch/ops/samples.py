@@ -3,6 +3,10 @@
 A batch of R rays holds up to S samples each as [R, S] tensors: depths
 ``z``, their spacing ``dt`` and a validity ``mask``. The valid samples of
 a row form a prefix sorted by depth; invalid slots hold ``INVALID_Z``.
+
+``combine`` (the merge of two sample sets) is kernel K8a
+(``csrc/volrender.cu``, a thread a ray) on a CUDA tensor and the plain
+version ``combine_reference`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -11,8 +15,13 @@ import dataclasses
 
 import torch
 
+from volsurfs_tpu_torch import _build
+
 # depth stored in invalid slots; sorts after any real sample
 INVALID_Z = 1e10
+
+# launch counts: the CUDA kernel's and the plain version's
+launches = {"combine_samples": 0, "combine_samples_reference": 0}
 
 
 def batched_searchsorted(bins, queries, side: str = "right"):
@@ -95,13 +104,12 @@ def _take(x, order):
     return torch.gather(x, 1, order[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def combine(a: RaySamples, b: RaySamples, min_dist_between_samples: float,
-            values_a=None, values_b=None):
-    """Merge two sample sets of the same rays, sorted by depth; a sample
-    closer than min_dist_between_samples to the last one kept is dropped
-    (the sequential keep-chain, one step a slot: S_a + S_b launches of a few
-    elementwise ops). Returns (samples with S_a + S_b slots, the merged
-    values or None)."""
+def combine_reference(a: RaySamples, b: RaySamples, min_dist_between_samples: float,
+                      values_a=None, values_b=None):
+    """Plain version of ``combine``: two stable argsorts around the
+    sequential keep-chain (one step a slot: S_a + S_b launches of a few
+    elementwise ops)."""
+    launches["combine_samples_reference"] += 1
     z = torch.cat([torch.where(a.mask, a.z, INVALID_Z), torch.where(b.mask, b.z, INVALID_Z)], 1)
     mask = torch.cat([a.mask, b.mask], dim=1)
     order = torch.argsort(z, dim=1, stable=True)
@@ -131,3 +139,55 @@ def combine(a: RaySamples, b: RaySamples, min_dist_between_samples: float,
         t_near=a.t_near, t_far=a.t_far, max_dt=torch.maximum(a.max_dt, b.max_dt),
     )
     return update_dt(out, is_background=False), values
+
+
+def combine(a: RaySamples, b: RaySamples, min_dist_between_samples: float,
+            values_a=None, values_b=None):
+    """Merge two sample sets of the same rays, sorted by depth (ties: a's
+    first); a sample closer than min_dist_between_samples to the last one
+    kept is dropped. The S_a + S_b slots of a row hold the kept samples by
+    depth, then the dropped valid ones in merge order, then a's invalid
+    slots, then b's; values [R, S_a, C] and [R, S_b, C] (optional) follow
+    their samples. dt as ``update_dt`` gives it, max_dt the larger of the
+    two. Returns (samples, the merged values or None); no gradient flows
+    through either (both samplers run it under no_grad)."""
+    if not a.z.is_cuda:
+        return combine_reference(a, b, min_dist_between_samples, values_a, values_b)
+    if (values_a is None) != (values_b is None):
+        raise ValueError("combine: give the values of both sample sets or of neither")
+    dev = a.z.device
+    R, Sa = a.z.shape
+    Sb = b.z.shape[1]
+    S = Sa + Sb
+    za, zb = a.z.contiguous(), b.z.contiguous()
+    ma, mb = a.mask.contiguous(), b.mask.contiguous()
+    t_far, mda, mdb = a.t_far.contiguous(), a.max_dt.contiguous(), b.max_dt.contiguous()
+    C = 0 if values_a is None else values_a.shape[-1]
+    checks = [("a.z", za, torch.float32, (R, Sa)), ("b.z", zb, torch.float32, (R, Sb)),
+              ("a.mask", ma, torch.bool, (R, Sa)), ("b.mask", mb, torch.bool, (R, Sb)),
+              ("a.t_far", t_far, torch.float32, (R, 1)), ("a.max_dt", mda, torch.float32, (R, 1)),
+              ("b.max_dt", mdb, torch.float32, (R, 1))]
+    if C:
+        values_a, values_b = values_a.contiguous(), values_b.contiguous()
+        checks += [("values_a", values_a, torch.float32, (R, Sa, C)),
+                   ("values_b", values_b, torch.float32, (R, Sb, C))]
+    for name, t, dtype, shape in checks:
+        _build.check_tensor(name, t, dtype, shape, dev)
+    if S > 4096:
+        raise ValueError(f"combine: at most 4096 slots a ray (got {S})")
+    z = torch.empty(R, S, dtype=torch.float32, device=dev)
+    mask = torch.empty(R, S, dtype=torch.bool, device=dev)
+    dt = torch.empty(R, S, dtype=torch.float32, device=dev)
+    max_dt = torch.empty(R, 1, dtype=torch.float32, device=dev)
+    values = torch.empty(R, S, C, dtype=torch.float32, device=dev) if C else None
+    status = _build.kernels().vs_combine_samples(
+        za.data_ptr(), ma.data_ptr(), zb.data_ptr(), mb.data_ptr(),
+        values_a.data_ptr() if C else None, values_b.data_ptr() if C else None,
+        t_far.data_ptr(), mda.data_ptr(), mdb.data_ptr(), min_dist_between_samples,
+        z.data_ptr(), mask.data_ptr(), dt.data_ptr(), values.data_ptr() if C else None,
+        max_dt.data_ptr(), Sa, Sb, C, R, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "combine_samples")
+    launches["combine_samples"] += 1
+    out = RaySamples(z=z, dt=dt, mask=mask, rays_o=a.rays_o, rays_d=a.rays_d, t_near=a.t_near,
+                     t_far=a.t_far, max_dt=max_dt)
+    return out, values

@@ -1,18 +1,33 @@
 """Volume-rendering reductions over dense masked ray samples (counterpart of
-volsurfs_tpu/ops/volume_rendering.py; K8 in ROADMAP.md, torch ops with
-autograd for now).
+volsurfs_tpu/ops/volume_rendering.py).
 
 Every function takes [R, S] (or [R, S, C]) tensors and the samples' mask.
 JAX sums and multiplies its scans as a tree (``associative_scan``); here
 they run in order (``cumsum``, ``cumprod``), which differs in the last
 bits.
+
+Two of them are kernels of K8 (``csrc/volrender.cu``) on a CUDA tensor and
+their plain versions, the torch ops below, on a CPU tensor:
+
+- ``neus_transmittance`` (K8b): NeuS' transmittance scan with its weights,
+  a thread a row, forward and backward (``torch.autograd.Function``);
+- ``neus_importance`` (K8c): from the SDFs at the samples to the new
+  depths of one round of importance sampling (alphas, scan, normalised
+  weights, CDF, its average over the surfaces, inverse-CDF placement), a
+  thread a ray, without gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from volsurfs_tpu_torch import _build
 from volsurfs_tpu_torch.ops.samples import RaySamples, batched_searchsorted
+
+# launch counts: the CUDA kernels' and the plain versions'
+launches = {"neus_transmittance_fwd": 0, "neus_transmittance_bwd": 0,
+            "neus_transmittance_reference": 0, "neus_importance": 0,
+            "neus_importance_reference": 0}
 
 
 def _gather(x, idx):
@@ -138,8 +153,10 @@ def sdf2alpha(samples: RaySamples, sdf, logistic_beta):
 def neus_alpha_from_sdf_gradients(samples: RaySamples, sdf, gradients, cos_anneal_ratio,
                                   logistic_beta):
     """NeuS alpha from the SDF and its gradients at the samples, with the
-    cos annealing; 0 where invalid."""
-    if sdf.ndim == 3:
+    cos annealing; 0 where invalid. sdf [R, S] (or [R, S, 1]) with
+    gradients [R, S, 3], or K surfaces at once: sdf [K, R, S] with
+    gradients [K, R, S, 3] -> [K, R, S]."""
+    if sdf.ndim == gradients.ndim:
         sdf = sdf[..., 0]
     dists = samples.dt
     true_cos = torch.sum(samples.dirs() * gradients, dim=-1)
@@ -154,10 +171,138 @@ def neus_alpha_from_sdf_gradients(samples: RaySamples, sdf, gradients, cos_annea
     return torch.where(samples.mask, alpha, 0.0)
 
 
+def neus_transmittance_reference(alpha, mask):
+    """Plain version of ``neus_transmittance`` (torch ops under autograd)."""
+    launches["neus_transmittance_reference"] += 1
+    alpha = torch.where(mask, alpha, 0.0)
+    transmittance, bg = cumprod_one_minus_alpha_to_transmittance((1.0 - alpha) + 1e-6, mask)
+    return alpha * transmittance, transmittance, bg
+
+
+def _transmittance_inputs(alpha, mask):
+    N, S = alpha.shape
+    alpha, mask = alpha.contiguous(), mask.contiguous()
+    _build.check_tensor("alpha", alpha, torch.float32, (N, S), alpha.device)
+    _build.check_tensor("mask", mask, torch.bool, (N, S), alpha.device)
+    return alpha, mask
+
+
+class _NeusTransmittance(torch.autograd.Function):
+    """K8b: (weights, transmittance, bg_transmittance) of alpha [N, S]; the
+    backward gives alpha's gradient by the reverse recurrence, without a
+    division."""
+
+    @staticmethod
+    def forward(ctx, alpha, mask):
+        alpha, mask = _transmittance_inputs(alpha, mask)
+        N, S = alpha.shape
+        w = torch.empty_like(alpha)
+        T = torch.empty_like(alpha)
+        bg = torch.empty(N, 1, dtype=alpha.dtype, device=alpha.device)
+        status = _build.kernels().vs_neus_transmittance_forward(
+            alpha.data_ptr(), mask.data_ptr(), w.data_ptr(), T.data_ptr(), bg.data_ptr(), S, N,
+            torch.cuda.current_stream(alpha.device).cuda_stream)
+        _build.check(status, "neus_transmittance forward")
+        launches["neus_transmittance_fwd"] += 1
+        ctx.save_for_backward(alpha, mask, T)
+        return w, T, bg
+
+    @staticmethod
+    def backward(ctx, g_w, g_T, g_bg):
+        alpha, mask, T = ctx.saved_tensors
+        N, S = alpha.shape
+        grads = [g.contiguous() for g in (g_w, g_T, g_bg)]
+        for name, g, shape in zip(("g_w", "g_T", "g_bg"), grads, ((N, S), (N, S), (N, 1))):
+            _build.check_tensor(name, g, torch.float32, shape, alpha.device)
+        g_alpha = torch.empty_like(alpha)
+        status = _build.kernels().vs_neus_transmittance_backward(
+            alpha.data_ptr(), mask.data_ptr(), T.data_ptr(), grads[0].data_ptr(),
+            grads[1].data_ptr(), grads[2].data_ptr(), g_alpha.data_ptr(), S, N,
+            torch.cuda.current_stream(alpha.device).cuda_stream)
+        _build.check(status, "neus_transmittance backward")
+        launches["neus_transmittance_bwd"] += 1
+        return g_alpha, None
+
+
+def neus_transmittance(alpha, mask):
+    """(weights alpha T [N, S], transmittance T [N, S], bg_transmittance
+    [N, 1]) of alpha [N, S] over the valid samples (alpha counts as 0 where
+    mask is False): T is the exclusive product of (1 - alpha) + 1e-6, and
+    bg_transmittance T at the last valid sample (1 for a row without
+    samples), as JAX's ``cumprod_one_minus_alpha_to_transmittance`` with
+    NeuS' bias. Differentiable in alpha."""
+    if not alpha.is_cuda:
+        return neus_transmittance_reference(alpha, mask)
+    return _NeusTransmittance.apply(alpha, mask)
+
+
 def neus_weights(samples: RaySamples, alpha):
     """(weights [R, S], transmittance [R, S], bg_transmittance [R, 1]) from
     the alphas, with NeuS' 1e-6 bias in the transmittance."""
-    alpha = torch.where(samples.mask, alpha, 0.0)
-    transmittance, bg = cumprod_one_minus_alpha_to_transmittance((1.0 - alpha) + 1e-6,
-                                                                 samples.mask)
-    return alpha * transmittance, transmittance, bg
+    return neus_transmittance(alpha, samples.mask)
+
+
+def _weights_cdf(samples: RaySamples, sdf, logistic_beta):
+    """The CDF of the normalised NeuS weights of one surface's SDF [R, S]."""
+    alpha = sdf2alpha(samples, sdf, logistic_beta)
+    w, _, _ = neus_transmittance_reference(alpha, samples.mask)
+    _, w_sum = sum_over_rays(w, samples.mask)
+    return compute_cdf(w / torch.clamp(w_sum, min=1e-6), samples.mask)
+
+
+def neus_cdf(samples: RaySamples, sdfs, logistic_beta):
+    """The CDF [R, S] of the normalised NeuS weights of each surface's SDF
+    (sdfs [R, S, K], or [R, S] for one), averaged over the K surfaces."""
+    if sdfs.ndim == 2:
+        sdfs = sdfs[..., None]
+    K = sdfs.shape[-1]
+    cdfs = [_weights_cdf(samples, sdfs[..., k], logistic_beta) for k in range(K)]
+    return cdfs[0] if K == 1 else torch.sum(torch.stack(cdfs, dim=0), dim=0) / K
+
+
+def neus_importance_reference(samples: RaySamples, sdfs, logistic_beta,
+                              nr_importance_samples: int, jitter=None) -> RaySamples:
+    """Plain version of ``neus_importance``."""
+    launches["neus_importance_reference"] += 1
+    return importance_sample(samples, neus_cdf(samples, sdfs, logistic_beta),
+                             nr_importance_samples, jitter)
+
+
+def neus_importance(samples: RaySamples, sdfs, logistic_beta, nr_importance_samples: int,
+                    jitter=None) -> RaySamples:
+    """One round of NeuS importance sampling: for each of K surfaces (sdfs
+    [R, S, K], or [R, S] for one) the ``sdf2alpha`` alphas, their NeuS
+    weights, normalised by their sum (at least 1e-6), and their CDF
+    (``compute_cdf``); the CDFs averaged over K (as JAX's ``_avg_cdf``),
+    then n new depths by ``importance_sample`` (jitter [R, n] or None).
+    No gradient."""
+    if not samples.z.is_cuda:
+        return neus_importance_reference(samples, sdfs, logistic_beta, nr_importance_samples,
+                                         jitter)
+    dev = samples.z.device
+    R, S = samples.z.shape
+    n = nr_importance_samples
+    sdfs = (sdfs[..., None] if sdfs.ndim == 2 else sdfs).detach().contiguous()
+    K = sdfs.shape[-1]
+    z, dt, mask = (t.contiguous() for t in (samples.z, samples.dt, samples.mask))
+    checks = [("z", z, torch.float32, (R, S)), ("dt", dt, torch.float32, (R, S)),
+              ("mask", mask, torch.bool, (R, S)), ("sdfs", sdfs, torch.float32, (R, S, K))]
+    if jitter is not None:
+        jitter = jitter.contiguous()
+        checks.append(("jitter", jitter, torch.float32, (R, n)))
+    for name, t, dtype, shape in checks:
+        _build.check_tensor(name, t, dtype, shape, dev)
+    if not 2 <= S <= 4096:
+        raise ValueError(f"neus_importance: 2 to 4096 samples a ray (got {S})")
+    z_imp = torch.empty(R, n, dtype=torch.float32, device=dev)
+    mask_imp = torch.empty(R, n, dtype=torch.bool, device=dev)
+    status = _build.kernels().vs_neus_importance(
+        z.data_ptr(), dt.data_ptr(), mask.data_ptr(), sdfs.data_ptr(),
+        None if jitter is None else jitter.data_ptr(), float(logistic_beta), z_imp.data_ptr(),
+        mask_imp.data_ptr(), S, K, n, R, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "neus_importance")
+    launches["neus_importance"] += 1
+    return RaySamples(z=z_imp, dt=torch.zeros_like(z_imp), mask=mask_imp, rays_o=samples.rays_o,
+                      rays_d=samples.rays_d, t_near=samples.t_near, t_far=samples.t_far,
+                      max_dt=samples.max_dt)
+

@@ -1,8 +1,8 @@
 """Hyper-parameters, loadable from the hjson configs under ``config/``.
 
 Counterpart of volsurfs_tpu/params/hyper_params.py, with the base class and
-the surf and volsurfs methods' classes (the methods ported so far), including their
-validation and coupling rules. Defaults are the
+the surf, offsets_surfs and volsurfs methods' classes (the methods ported so
+far), including their validation and coupling rules. Defaults are the
 reference's defaults; any field present under ``hyper_params`` in a config
 file overrides the default.
 """
@@ -134,6 +134,29 @@ class HyperParamsSuRF(HyperParams):
 
 
 @dataclasses.dataclass
+class HyperParamsOffsetsSuRFs(HyperParamsSuRF):
+    # surfaces (reference hyper_params.py:267-348)
+    nr_inner_surfs: int = 1
+    nr_outer_surfs: int = 1
+    delta_surfs_multiplier: float = 1.0
+    color_init_phase_end_iter: int = 6000
+    are_surfs_colors_indep: bool = False
+    are_surfs_transparency_indep: bool = False
+    is_inner_surf_solid: bool = False
+    transp_view_dep: bool = True
+    transp_normal_dep: bool = True
+    transp_geom_feat_dep: bool = True
+    offsets_weight: float = 0.0
+    support_surfs_eikonal_weight: float = 0.0
+    with_alpha_decay: bool = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.transp_geom_feat_dep and self.geom_feat_size == 0:
+            self.transp_geom_feat_dep = False
+
+
+@dataclasses.dataclass
 class HyperParamsVolSurfs(HyperParams):
     # mesh-shell appearance (reference hyper_params.py:381-479)
     meshes_indices: Optional[List[int]] = None
@@ -173,7 +196,8 @@ class HyperParamsVolSurfs(HyperParams):
 
 def get_method_hyper_params(method_name: str, cfg_path: str):
     """Hyper-parameters of a method from a config file."""
-    cls = {"surf": HyperParamsSuRF, "volsurfs": HyperParamsVolSurfs}.get(method_name)
+    cls = {"surf": HyperParamsSuRF, "offsets_surfs": HyperParamsOffsetsSuRFs,
+           "volsurfs": HyperParamsVolSurfs}.get(method_name)
     if cls is None:
         raise ValueError(f"method {method_name!r} is not ported to torch yet")
     return cls.from_cfg(cfg_path)

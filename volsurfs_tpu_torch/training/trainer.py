@@ -11,12 +11,15 @@ method's device from ``self.generator``, a ``torch.Generator`` seeded with
 Losses stay on the device: the loop reads them every ``log_every`` steps,
 and the callbacks at their own cadences.
 
-``surf`` and ``volsurfs`` are ported; the other methods raise
-``NotImplementedError`` naming their ROADMAP.md Queue 1 item. A method with
-an occupancy grid (surf) has it refreshed every ``update_occupancy_every``
-steps, before the step, as in JAX. As in JAX, the dynamic ray count acts
-only when the losses carry ``nr_samples_total`` (surf's do, volsurfs' do
-not). Not ported: the TPU compile-retry wrapper (nothing is compiled here),
+``surf``, ``offsets_surfs`` and ``volsurfs`` are ported; nerf raises
+``NotImplementedError`` naming its ROADMAP.md Queue 1 item. A method with
+an occupancy grid (surf, offsets_surfs) has it refreshed every
+``update_occupancy_every`` steps, before the step, as in JAX. As in JAX, the
+dynamic ray count acts only when the losses carry ``nr_samples_total``
+(surf's and offsets_surfs' data steps do, volsurfs' do not). The CLI's
+``--models_path`` takes a surf run's models directory into offsets_surfs:
+its ``sdf.pt`` goes into the shared encoder and the main head
+(``OffsetsSurfs.load_main_sdf``). Not ported: the TPU compile-retry wrapper (nothing is compiled here),
 data parallelism over a device mesh (``--data_parallel``, Queue 1 item 9),
 the distillation mix and the profiler hook.
 """
@@ -43,7 +46,7 @@ from volsurfs_tpu_torch.utils.evaluation import PerSceneEvaluator
 
 # methods of the JAX package that the port does not have yet, and the
 # ROADMAP.md Queue 1 item that ports each
-NOT_PORTED = {"offsets_surfs": 6, "nerf": 8}
+NOT_PORTED = {"nerf": 8}
 METHODS = ("surf", "nerf", "offsets_surfs", "volsurfs")
 
 
@@ -52,7 +55,7 @@ def require_ported(method_name: str):
         raise NotImplementedError(
             f"method {method_name!r} is not ported to torch yet "
             f"(ROADMAP.md Queue 1 item {NOT_PORTED[method_name]})")
-    if method_name not in ("surf", "volsurfs"):
+    if method_name not in ("surf", "offsets_surfs", "volsurfs"):
         raise ValueError(f"unknown method {method_name}")
 
 
@@ -64,6 +67,12 @@ def make_method(method_name, hp, bounding_primitive, bg_color, seed: int = 0,
 
         return Surf(hp, bounding_primitive, bg_color=bg_color, occupancy_res=occupancy_res,
                     device=device, seed=seed, **method_kwargs)
+    if method_name == "offsets_surfs":
+        from volsurfs_tpu_torch.methods.offsets_surfs import OffsetsSurfs
+
+        return OffsetsSurfs(hp, bounding_primitive, bg_color=bg_color,
+                            occupancy_res=occupancy_res, device=device, seed=seed,
+                            **method_kwargs)
     from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
 
     return VolSurfs(hp, bg_color=bg_color, bounding_primitive=bounding_primitive,
@@ -212,9 +221,11 @@ class Trainer:
         return self.method
 
     def render_camera(self, camera, chunk_size: int = 2048) -> dict:
-        """Full frame as numpy {"rgb": [H, W, 3], "bg_transmittance": [H, W,
-        1]}; averages hp.nr_test_rays_per_pixel jittered frames when it is
-        above 1 (the jitter drawn from ``self.generator``)."""
+        """Full frame as numpy: each output of the method's render function
+        as [H, W, C] ({"rgb": [H, W, 3], "bg_transmittance": [H, W, 1]}, and
+        offsets_surfs' "surfs_alpha" [H, W, K]); averages
+        hp.nr_test_rays_per_pixel jittered frames when it is above 1 (the
+        jitter drawn from ``self.generator``)."""
         render_fn = self.method.make_render_fn()
         ss = max(int(self.method.hp.nr_test_rays_per_pixel), 1)
         H, W = camera.height, camera.width
@@ -277,8 +288,9 @@ def main(argv=None):
     parser.add_argument("--datasets_path", default=None, help="override paths cfg")
     parser.add_argument("--runs_path", default=None, help="override paths cfg")
     parser.add_argument("--models_path", default=None,
-                        help="models dir of a previous stage (volsurfs takes its trained "
-                             "background from there, which is not ported: no effect)")
+                        help="models dir of a previous stage: offsets_surfs takes a surf "
+                             "run's sdf.pt from there (volsurfs would take its trained "
+                             "background, which is not ported: no effect)")
     parser.add_argument("--meshes_path", default=None,
                         help="directory of .obj shells for volsurfs")
     parser.add_argument("--train_iters", type=int, default=None)
@@ -344,6 +356,10 @@ def main(argv=None):
     method = make_method(args.method, hp, make_bounding_sphere(mv_data.scene_radius),
                          mv_data.bg_color or data_params.bg_color, seed=args.seed,
                          device=device, **method_kwargs)
+    # cross-stage transfer: a surf run's SDF into offsets_surfs' main surface
+    sdf_path = os.path.join(args.models_path or "", "sdf.pt")
+    if args.method == "offsets_surfs" and args.models_path and os.path.exists(sdf_path):
+        method.load_main_sdf(torch.load(sdf_path, map_location="cpu", weights_only=True))
     trainer = Trainer(method, mv_data, run_dir, seed=args.seed, train_params=train_params)
     if args.continue_training:
         trainer.load_checkpoint()

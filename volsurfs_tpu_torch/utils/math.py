@@ -36,7 +36,11 @@ def take_rev(x, dim: int):
 
 
 def small_cumsum(x, dim: int):
-    """Cumulative sum along a tiny axis, as a chain of additions."""
+    """Cumulative sum along a tiny axis, as a chain of additions; an empty
+    axis gives the empty tensor (offsets_surfs without outer surfaces, as
+    config/offsets_surfs/base_5.cfg; JAX's small_cumsum raises there)."""
+    if x.shape[dim] == 0:
+        return x
     slices = torch.unbind(x, dim=dim)
     acc = slices[0]
     outs = [acc]

@@ -29,6 +29,10 @@ def get_logistic_beta_from_variance(variance):
     return np.float32(np.clip(np.float32(np.exp(x)), np.float32(1e-6), np.float32(1e6)))
 
 
+def logistic_distribution_stdev(beta):
+    return (np.pi / np.sqrt(3.0)) / beta
+
+
 def make_lr_schedule(
     base_lr: float,
     milestones,
