@@ -8,9 +8,11 @@ same card, in turns, so that their numbers can be compared.
 OTHER_CHECKOUT is an unpacked tree of an earlier commit (for example
 ``git archive <commit> | tar -x -C _proof/parent``). The two run in the
 order other, this, this, other, each in its own process, with their logs
-in OUT_DIR; after each, ``python -m volsurfs_tpu_torch.kernel_bench k6``
-in the same tree (K6's forward without saving, and one lookup's forward
-and backward, through the public wrappers). The other tree is measured with this tree's timers: its
+in OUT_DIR; after each, ``python -m volsurfs_tpu_torch.kernel_bench k6
+k8`` in the same tree (K6's forward without saving, and one lookup's
+forward and backward; K8's kernels at the surf and offsets_surfs steps'
+and the surf eval chunk's shapes; all through the public wrappers). The
+other tree is measured with this tree's timers: its
 ``volsurfs_tpu_torch/kernel_bench.py`` is replaced by this one's and its
 chip_smoke's ``profiled`` by this one's, so that both time and profile
 alike; its kernels are its own. Prints each run's train, kernel,
@@ -54,7 +56,7 @@ sys.exit(chip_smoke.main())
 
 def run(label, cmd, cwd, out_dir, i):
     log = os.path.join(out_dir, f"{i}_{label}.log")
-    bench = [sys.executable, "-m", "volsurfs_tpu_torch.kernel_bench", "k6"]
+    bench = [sys.executable, "-m", "volsurfs_tpu_torch.kernel_bench", "k6", "k8"]
     with open(log, "w") as out, open(log + ".err", "w") as err:
         rc = subprocess.run(cmd, cwd=cwd, stdout=out, stderr=err, timeout=900).returncode
         rc = max(rc, subprocess.run(bench, cwd=cwd, stdout=out, stderr=err,

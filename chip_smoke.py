@@ -112,11 +112,13 @@ the surf stage's SDF:
    forward and backward, importance sampling) against its plain versions
    at the surf (K = 1 surface) and offsets_surfs (K = 5) data steps'
    shapes, each at the ray count its path's last steps took (the
-   trainers' dynamic-count buckets: 512 and 2,048 on the card;
+   trainers' dynamic-count buckets: 512 and 2,048 on the card), and at
+   the surf eval chunk's (K = 1, Trainer.render_camera's 2,048 rays;
    volsurfs_tpu_torch/kernel_bench.py's k8_cases and k8_check): combine
    bit for bit at a step's three merges, the scan's outputs and gradient
-   and the importance depths within stated tolerances; times, bounds,
-   registers, and torch.cumprod beside the scan.
+   and both importance rounds' depths (64 and 80 samples) within stated
+   tolerances; times, bounds, registers, and torch.cumprod beside the
+   scan.
 
 The main paths, each with the launch counts set to 0 before it and read
 after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
@@ -1168,11 +1170,11 @@ def _k8_cost(kind, args):
     return nbytes, R * S * K * 40 + R * n * (2 * int(np.log2(S)) + 12)
 
 
-def phase_volrender(device, resources, rays):
-    """K8 against its plain versions at the surf (K = 1) and offsets_surfs
-    (K = 5) data steps' shapes, at the rays {K: R} the paths' last steps
-    took (phase 18). Returns {K: {kernel: result}} of each kernel's largest
-    case."""
+def phase_volrender(device, resources, cases):
+    """K8 against its plain versions at each case {name: (K, R)}: the surf
+    (K = 1) and offsets_surfs (K = 5) data steps' shapes at the rays R
+    their paths' last steps took, and the surf eval chunk's (phase 18).
+    Returns {name: {kernel: result}} of each kernel's last case."""
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import samples as TS
     from volsurfs_tpu_torch.ops import volume_rendering as VR
@@ -1180,24 +1182,25 @@ def phase_volrender(device, resources, rays):
     registers = {k: v.get("registers") for k, v in resources.items()
                  if k.startswith(("combine_samples", "neus_"))}
     results = {}
-    for K, R in sorted(rays.items()):
-        cases = kb.k8_cases(device, K, R)
+    for name, (K, R) in cases.items():
+        inputs = kb.k8_cases(device, K, R)
         rows = {}
 
         def measure(kernel, case, kind, fn, plain, args, got, ref, library=None):
             check = kb.k8_check(kind, got, ref)
             bound_ms, bound_by = _bound(*_k8_cost(kind, args))
-            row = dict(kernel=kernel, surfaces=K, rays=R, case=case, **check, ms=kb.time_ms(fn),
+            row = dict(kernel=kernel, path=name, surfaces=K, rays=R, case=case, **check,
+                       ms=kb.time_ms(fn),
                        device_ms=kb.device_ms(fn),
                        plain_ms=kb.time_ms(plain, reps=5, warmup=1), bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=None if library is None else
                        kb.time_ms(library), registers=registers)
             emit("k8_volrender", **row)
             if not check["ok"]:
-                raise AssertionError(f"K8 {kernel} ({K} surfaces, {case}) disagrees: {row}")
+                raise AssertionError(f"K8 {kernel} ({name}, {case}) disagrees: {row}")
             rows[kernel] = row
 
-        for merge, args in cases["combine"].items():
+        for merge, args in inputs["combine"].items():
             a, b, va, vb = args
             got, ref = TS.combine(*args[:2], 1e-4, va, vb), TS.combine_reference(a, b, 1e-4, va, vb)
             outs = [(s_.z, s_.mask, s_.dt, s_.max_dt) + (() if v is None else (v,))
@@ -1205,15 +1208,15 @@ def phase_volrender(device, resources, rays):
             measure("combine_samples", merge, "combine",
                     lambda: TS.combine(a, b, 1e-4, va, vb),
                     lambda: TS.combine_reference(a, b, 1e-4, va, vb), args, *outs)
-        alpha, mask = cases["transmittance"]
+        alpha, mask = inputs["transmittance"]
         cot = [torch.randn(alpha.shape, device=device), torch.randn(alpha.shape, device=device),
                torch.randn(alpha.shape[0], 1, device=device)]
         graphs = {}
-        for name, fn in (("kernel", VR.neus_transmittance),
+        for side, fn in (("kernel", VR.neus_transmittance),
                          ("plain", VR.neus_transmittance_reference)):
             a = alpha.clone().requires_grad_(True)
             out = fn(a, mask)
-            graphs[name] = (a, out)
+            graphs[side] = (a, out)
         outs = [tuple(o.detach() for o in graphs[n][1]) for n in ("kernel", "plain")]
         shape = f"{alpha.shape[0]}x{alpha.shape[1]}"
         measure("neus_transmittance_forward", shape, "transmittance_fwd",
@@ -1221,20 +1224,20 @@ def phase_volrender(device, resources, rays):
                 lambda: VR.neus_transmittance_reference(alpha, mask), (alpha,), *outs,
                 library=lambda: torch.cumprod(alpha, dim=1))  # yardstick only
 
-        def backward(name):
-            a, out = graphs[name]
+        def backward(side):
+            a, out = graphs[side]
             return torch.autograd.grad(out, a, cot, retain_graph=True)
 
         grads = [backward(n) for n in ("kernel", "plain")]
         measure("neus_transmittance_backward", shape, "transmittance_bwd",
                 lambda: backward("kernel"), lambda: backward("plain"), (alpha,), *grads)
-        for rnd, args in cases["importance"].items():
+        for rnd, args in inputs["importance"].items():
             got, ref = VR.neus_importance(*args), VR.neus_importance_reference(*args)
             measure("neus_importance", f"{rnd}_samples", "importance",
                     lambda: VR.neus_importance(*args),
                     lambda: VR.neus_importance_reference(*args), args,
                     (got.z, got.mask), (ref.z, ref.mask))
-        results[K] = rows
+        results[name] = rows
     return results
 
 
@@ -1430,7 +1433,9 @@ def main():
     k4, baked = phase_baked(device, smi, sass)
     k6, k7, surf, sdf_state, surf_rays = phase_surf(device, reel, mv, resources)
     offsets, offsets_rays = phase_offsets(device, mv, sdf_state)
-    k8 = phase_volrender(device, resources, {1: surf_rays, 5: offsets_rays})
+    k8 = phase_volrender(device, resources, {"surf_step": (1, surf_rays),
+                                             "offsets_step": (5, offsets_rays),
+                                             "surf_eval_chunk": (1, kb.K8_EVAL_RAYS)})
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: over the volsurfs stage (which begins with train_render), the
@@ -1512,7 +1517,7 @@ def main():
              "volsurfs_tpu/ops/volume_rendering.py:36"),
             ("neus_importance", "neus_importance", "neus_importance_reference",
              "neus_importance_kernel", "volsurfs_tpu/ops/volume_rendering.py:137")):
-        row = k8[5][kernel]
+        row = k8["offsets_step"][kernel]
         kernels.append(dict(
             name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/volrender.cu",
             replaces=line, launches=surf[count] + offsets[count],

@@ -617,11 +617,18 @@ def test_transmittance_kernel_matches_plain_autograd(cuda, K):
     three, against the plain version under autograd (kernel_bench.k8_check's
     tolerances)."""
     from volsurfs_tpu_torch import kernel_bench as kb
+
+    _check_transmittance(*kb.k8_cases(cuda, K)["transmittance"])
+
+
+def _check_transmittance(alpha, mask):
+    """K8b's forward and its backward from cotangents on all three outputs
+    against the plain version under autograd."""
     from volsurfs_tpu_torch.ops import volume_rendering as VR
 
-    alpha, mask = kb.k8_cases(cuda, K)["transmittance"]
-    cot = [torch.randn(alpha.shape, device=cuda), torch.randn(alpha.shape, device=cuda),
-           torch.randn(alpha.shape[0], 1, device=cuda)]
+    dev = alpha.device
+    cot = [torch.randn(alpha.shape, device=dev), torch.randn(alpha.shape, device=dev),
+           torch.randn(alpha.shape[0], 1, device=dev)]
     outs, grads = [], []
     for fn in (VR.neus_transmittance, VR.neus_transmittance_reference):
         a = alpha.clone().requires_grad_(True)
@@ -631,6 +638,32 @@ def test_transmittance_kernel_matches_plain_autograd(cuda, K):
         grads.append((a.grad,))
     _check_k8("transmittance_fwd", *outs)
     _check_k8("transmittance_bwd", *grads)
+
+
+def _transmittance_edge_rows(device, S, R=96, seed=0):
+    """[R, S] alphas in [0, 0.4) with 5% at 1, and prefix masks: rows of 0,
+    1 and S valid samples, the rest of random counts; a quarter of the rows
+    with a run of 12 alphas of 1 from their second sample, whose products
+    underflow T to 0."""
+    rng = np.random.default_rng(seed + S)
+    alpha = rng.uniform(0.0, 0.4, (R, S)).astype(np.float32)
+    alpha[rng.uniform(0, 1, alpha.shape) < 0.05] = 1.0
+    alpha[::4, 1:13] = 1.0
+    count = rng.integers(0, S + 1, (R, 1))
+    count[:6] = [[0], [1], [S], [0], [1], [S]]
+    mask = np.arange(S)[None, :] < count
+    return (torch.from_numpy(alpha).to(device), torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 96, 97, 300])
+def test_transmittance_kernel_edge_rows(cuda, S):
+    """K8b at row lengths on either side of the warp layout's 32-sample
+    chunks and 128-sample tiles (the scans' carries), on rows of 0, 1 and
+    S valid samples and runs of alpha = 1 that underflow T: forward and
+    backward against the plain version (kernel_bench.k8_check's
+    tolerances)."""
+    torch.manual_seed(S)
+    _check_transmittance(*_transmittance_edge_rows(cuda, S))
 
 
 @pytest.mark.parametrize("K", [1, 5])
@@ -647,6 +680,59 @@ def test_importance_kernel_matches_plain(cuda, K):
             got = VR.neus_importance(samples, sdfs, beta, n, jit)
             ref = VR.neus_importance_reference(samples, sdfs, beta, n, jit)
             _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
+
+
+def _importance_edge_case(device, S, K, R=256, seed=0):
+    """(samples, sdfs [R, S, K], beta): R rays of S samples with prefix
+    masks, the first rays of 0, 1, 2 and S valid samples, the rest of
+    random counts; the SDFs cross 0 along the rays, each surface a shifted
+    copy of the main one (kernel_bench.k8_cases' SDFs)."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+
+    rng = np.random.default_rng(seed + 10 * S + K)
+    count = rng.integers(0, S + 1, (R, 1))
+    count[:8] = [[0], [1], [min(2, S)], [S], [0], [1], [min(2, S)], [S]]
+    samples = kb.k8_samples(device, rng, R, S, count)
+    noise = torch.from_numpy(rng.standard_normal((R, S)).astype(np.float32)).to(device)
+    base = 2.0 - samples.z + 0.02 * noise
+    offsets = torch.tensor(kb.K8_OFFSETS[5 - K:], device=device)
+    return samples, (base[..., None] + offsets).contiguous(), 18.5
+
+
+@pytest.mark.parametrize("K", [1, 3, 5])
+@pytest.mark.parametrize("S", [2, 33, 80, 300])
+def test_importance_kernel_edge_rays(cuda, S, K):
+    """K8c at row lengths on either side of the warp layout's chunks and
+    tiles, K surfaces, 16 and 48 new depths (more targets than lanes), with
+    and without jitter, on rays of 0, 1, 2 and S valid samples: the masks
+    equal, the depths by kernel_bench.k8_check's tolerance."""
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    samples, sdfs, beta = _importance_edge_case(cuda, S, K)
+    rng = np.random.default_rng(S)
+    for n in (16, 48):
+        jitter = torch.from_numpy(
+            rng.uniform(-0.5, 0.5, (samples.z.shape[0], n)).astype(np.float32)).to(cuda)
+        for jit in (jitter, None):
+            got = VR.neus_importance(samples, sdfs, beta, n, jit)
+            ref = VR.neus_importance_reference(samples, sdfs, beta, n, jit)
+            _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
+
+
+@pytest.mark.parametrize("K", [1, 10])
+def test_importance_kernel_long_rays(cuda, K):
+    """K8c at the wrapper's longest rows, 4,096 samples: at K = 1 a ray's
+    staged row takes more than the static 48 KB of shared memory (the
+    kernel's limit is raised), at K = 10 more than a block may take (its
+    SDFs are then read in place): the masks equal, the depths by
+    kernel_bench.k8_check's tolerance."""
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    samples, sdfs, beta = _importance_edge_case(cuda, 4096, 1, R=32)
+    sdfs = (sdfs + torch.linspace(0.1, 0.0, K, device=cuda)).contiguous()
+    got = VR.neus_importance(samples, sdfs, beta, 16)
+    ref = VR.neus_importance_reference(samples, sdfs, beta, 16)
+    _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
 
 
 def test_offsets_surfs_steps_on_the_card(cuda, tmp_path):

@@ -312,3 +312,66 @@ def test_neus_transmittance_backward_matches_jax_grad():
      + torch.sum(bg * torch.from_numpy(g_bg))).backward()
     assert np.abs(np.asarray(ref)).max() > 1.0 and (t.detach().numpy() == 0).any()
     np.testing.assert_allclose(a.grad.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("s", [2, 33, 97])
+def test_neus_scan_and_importance_at_row_edges_match_jax(monkeypatch, s):
+    """The plain versions the K8b and K8c kernels are held to, at row
+    lengths on either side of the kernels' 32-sample chunks, on 64 rays
+    with empty, one-sample and full rows: ``neus_transmittance`` forward
+    (VR_TOL) and its gradient under autograd against jax.grad of
+    ``neus_weights`` (1e-5 relative + 1e-7, as above) on rows where alpha
+    reaches 1, and ``neus_importance`` at K = 3 surfaces: its CDF against
+    ``_avg_cdf`` (VR_TOL), its depths against ``importance_sample`` of that
+    CDF with and without jitter (masks exact, depths 1e-5)."""
+    from types import SimpleNamespace
+
+    from volsurfs_tpu.methods.offsets_surfs import OffsetsSurfs as JOffsetsSurfs
+
+    rng = np.random.default_rng(20 + s)
+    n, K = 64, 3
+    o, d, t0, t1 = _rays(rng, n)
+    t1 = np.maximum(t1, t0 + 0.5)
+    count = rng.integers(0, s + 1, (n, 1))
+    count[:8] = [[0], [0], [1], [1], [s], [s], [s], [min(2, s)]]
+    mask = np.arange(s)[None, :] < count
+    u = np.sort(rng.uniform(0.0, 1.0, (n, s)), axis=1)
+    z = np.where(mask, t0 + u * (t1 - t0), JS.INVALID_Z).astype(np.float32)
+    jsamp, tsamp = _both_samples(o, d, t0, t1, z, mask, ((t1 - t0) / s).astype(np.float32))
+
+    alpha = rng.uniform(0.0, 0.3, (n, s)).astype(np.float32)
+    alpha[rng.uniform(0, 1, (n, s)) < 0.15] = 1.0
+    alpha[::4, 1:13] = 1.0  # opaque runs
+    g_w, g_T = (rng.standard_normal((n, s)).astype(np.float32) for _ in range(2))
+    g_bg = rng.standard_normal((n, 1)).astype(np.float32)
+
+    def jax_loss(a):
+        w, t, bg = JVR.neus_weights(jsamp, a)
+        return jnp.sum(w * g_w) + jnp.sum(t * g_T) + jnp.sum(bg * g_bg)
+
+    ref_out = JVR.neus_weights(jsamp, jnp.asarray(alpha))
+    ref_grad = jax.grad(jax_loss)(jnp.asarray(alpha))
+    a = torch.from_numpy(alpha).requires_grad_(True)
+    out = TVR.neus_transmittance(a, tsamp.mask)
+    for got, ref in zip(out, ref_out):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **VR_TOL)
+    (torch.sum(out[0] * torch.from_numpy(g_w)) + torch.sum(out[1] * torch.from_numpy(g_T))
+     + torch.sum(out[2] * torch.from_numpy(g_bg))).backward()
+    np.testing.assert_allclose(a.grad.numpy(), np.asarray(ref_grad), rtol=1e-5, atol=1e-7)
+
+    base = 1.0 - z / t1 + 0.05 * rng.standard_normal(z.shape)
+    sdfs = (base[..., None] + np.float32([0.04, 0.0, -0.04])).astype(np.float32)
+    beta = np.float32(18.5)
+    ref_cdf = JOffsetsSurfs._avg_cdf(SimpleNamespace(nr_surfs=K), jsamp, jnp.asarray(sdfs), beta)
+    cdf = TVR.neus_cdf(tsamp, torch.from_numpy(sdfs), float(beta))
+    np.testing.assert_allclose(cdf.numpy(), np.asarray(ref_cdf), **VR_TOL)
+    for jitter in (None, rng.uniform(-0.5, 0.5, (n, 16)).astype(np.float32)):
+        key = None
+        if jitter is not None:
+            _fed_uniform(monkeypatch, [jitter])
+            key = jax.random.PRNGKey(0)
+        ref = JVR.importance_sample(jsamp, ref_cdf, 16, key)
+        got = TVR.neus_importance(tsamp, torch.from_numpy(sdfs), float(beta), 16,
+                                  None if jitter is None else torch.from_numpy(jitter))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+        np.testing.assert_allclose(got.z.numpy(), np.asarray(ref.z), rtol=1e-5, atol=1e-5)

@@ -19,10 +19,11 @@
   term's) at 49,152 samples, forward and backward into the table and the
   points, whatever kernels the tree's backward takes;
 - K8 (``csrc/volrender.cu``) at the surf and offsets_surfs data steps'
-  shapes (512 rays, 64 + 16 + 16 samples, K = 1 or 5 surfaces, inputs from
-  ``k8_cases``): ``combine`` at each of a step's three merges, the
-  transmittance scan forward and backward on [K x 512, 96] rows and each
-  round of ``neus_importance``.
+  shapes (512 rays at K = 1 surface, 2,048 at K = 5; 64 + 16 + 16
+  samples; inputs from ``k8_cases``) and the surf eval chunk's (2,048 rays,
+  K = 1): ``combine`` at each of a step's three merges, the transmittance
+  scan forward and backward on [K x R, 96] rows and each round of
+  ``neus_importance``.
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 shape) with ``ms`` (median of CUDA-event timings of one call) and
@@ -265,6 +266,7 @@ K8_UNIFORM, K8_IMP = 64, 16
 # bucket from its first phase on (chip_smoke.py's offsets_train line,
 # rays_bucket_by_step). chip_smoke.py passes the buckets its paths ran.
 K8_RAYS = {1: TRAIN_RAYS, 5: 4 * TRAIN_RAYS}
+K8_EVAL_RAYS = 2048  # the rays of a render chunk of Trainer.render_camera (surf eval: K = 1)
 K8_OFFSETS = (0.12, 0.08, 0.04, 0.02, 0.0)  # the base_5 surfaces' offsets of the main SDF
 
 
@@ -378,11 +380,11 @@ def bench_k8(device, smi):
     from volsurfs_tpu_torch.ops import samples as TS
     from volsurfs_tpu_torch.ops import volume_rendering as VR
 
-    for K in (1, 5):
-        cases = k8_cases(device, K)
+    for K, R in ((1, K8_RAYS[1]), (5, K8_RAYS[5]), (1, K8_EVAL_RAYS)):
+        cases = k8_cases(device, K, R)
         for merge, (a, b, va, vb) in cases["combine"].items():
             _bench_line("k8a_combine", lambda: TS.combine(a, b, 1e-4, va, vb), smi, surfaces=K,
-                        rays=K8_RAYS[K], merge=merge)
+                        rays=R, merge=merge)
         alpha, mask = cases["transmittance"]
         _bench_line("k8b_transmittance_fwd", lambda: VR.neus_transmittance(alpha, mask), smi,
                     rows=alpha.shape[0], samples=alpha.shape[1])
@@ -397,7 +399,7 @@ def bench_k8(device, smi):
                     samples=alpha.shape[1])
         for rnd, args in cases["importance"].items():
             _bench_line("k8c_importance", lambda: VR.neus_importance(*args), smi, surfaces=K,
-                        rays=K8_RAYS[K], samples=int(rnd))
+                        rays=R, samples=int(rnd))
 
 
 def _bench_line(bench, fn, smi, **fields):

@@ -10,11 +10,12 @@ Two of them are kernels of K8 (``csrc/volrender.cu``) on a CUDA tensor and
 their plain versions, the torch ops below, on a CPU tensor:
 
 - ``neus_transmittance`` (K8b): NeuS' transmittance scan with its weights,
-  a thread a row, forward and backward (``torch.autograd.Function``);
+  a warp a row (warp scans), forward and backward
+  (``torch.autograd.Function``);
 - ``neus_importance`` (K8c): from the SDFs at the samples to the new
   depths of one round of importance sampling (alphas, scan, normalised
   weights, CDF, its average over the surfaces, inverse-CDF placement), a
-  thread a ray, without gradient.
+  warp a ray with its row in shared memory, without gradient.
 """
 
 from __future__ import annotations
@@ -189,8 +190,8 @@ def _transmittance_inputs(alpha, mask):
 
 class _NeusTransmittance(torch.autograd.Function):
     """K8b: (weights, transmittance, bg_transmittance) of alpha [N, S]; the
-    backward gives alpha's gradient by the reverse recurrence, without a
-    division."""
+    backward gives alpha's gradient by the reverse recurrence (a suffix
+    scan of affine maps), without a division."""
 
     @staticmethod
     def forward(ctx, alpha, mask):
