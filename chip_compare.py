@@ -9,13 +9,16 @@ OTHER_CHECKOUT is an unpacked tree of an earlier commit (for example
 ``git archive <commit> | tar -x -C _proof/parent``). The two run in the
 order other, this, this, other, each in its own process, with their logs
 in OUT_DIR; after each, ``python -m volsurfs_tpu_torch.kernel_bench k6
-k8`` in the same tree (K6's forward without saving, and one lookup's
-forward and backward; K8's kernels at the surf and offsets_surfs steps'
-and the surf eval chunk's shapes; all through the public wrappers). The
+k7 k8`` in the same tree (K6's forward without saving, and one lookup's
+forward and backward; K7 at the train steps' and a render chunk's rays;
+K8's kernels at the surf and offsets_surfs steps' and the surf eval
+chunk's shapes; all through the public wrappers). The
 other tree is measured with this tree's timers: its
 ``volsurfs_tpu_torch/kernel_bench.py`` is replaced by this one's and its
 chip_smoke's ``profiled`` by this one's, so that both time and profile
-alike; its kernels are its own. Prints each run's train, kernel,
+alike, and its offsets_surfs stage runs this one's cut of the schedule
+(``OFFSETS_SCALE``), so that both profile steps of one training state;
+its kernels are its own. Prints each run's train, kernel,
 orbit, quality, surf- and offsets_surfs-stage lines. Needs a CUDA card.
 
 With ``--surf-pairs N`` it runs only the surf stage's training
@@ -37,11 +40,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = tuple('{"phase": "%s"' % p for p in (
     "build", "train_done", "train_profile", "k4_shade", "baked_orbit",
     "baked_orbit_profile", "baked_quality", "k6_permuto", "surf_train", "surf_eval",
-    "surf_train_profile", "surf_stage_launches", "k8_volrender", "offsets_train",
+    "k7_occupancy_sampler", "surf_train_profile", "surf_stage_launches", "k8_volrender",
+    "offsets_train",
     "offsets_eval", "offsets_train_profile", "offsets_stage_launches")) + (
     '{"kernels"', '{"bench"')
 
-# runs the other tree's chip_smoke.main() with this tree's profiled()
+# runs the other tree's chip_smoke.main() with this tree's profiled() and
+# offsets_surfs cut
 BOOTSTRAP = """
 import importlib.util, sys
 sys.path.insert(0, {other!r})
@@ -50,13 +55,14 @@ this = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(this)
 import chip_smoke
 chip_smoke.profiled = this.profiled
+chip_smoke.OFFSETS_SCALE = this.OFFSETS_SCALE
 sys.exit(chip_smoke.main())
 """
 
 
 def run(label, cmd, cwd, out_dir, i):
     log = os.path.join(out_dir, f"{i}_{label}.log")
-    bench = [sys.executable, "-m", "volsurfs_tpu_torch.kernel_bench", "k6", "k8"]
+    bench = [sys.executable, "-m", "volsurfs_tpu_torch.kernel_bench", "k6", "k7", "k8"]
     with open(log, "w") as out, open(log + ".err", "w") as err:
         rc = subprocess.run(cmd, cwd=cwd, stdout=out, stderr=err, timeout=900).returncode
         rc = max(rc, subprocess.run(bench, cwd=cwd, stdout=out, stderr=err,

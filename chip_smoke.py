@@ -80,7 +80,8 @@ the surf stage's SDF:
 13. kernel K7 (the occupied-space sampler, csrc/occupancy_sampler.cu)
    against its plain version on a refreshed 256^3 grid at the train
    step's 512 rays and a 16,384-ray render chunk, bit for bit, with times
-   and the bound (the distinct voxels the rays read);
+   and the bound (the distinct voxels the rays read, and the operations
+   of their points, K7_OPS_A_POINT, at the card's issue rate);
 14. the surf stage: config/surf/base.cfg at full width through
    Trainer.train on the sphere scene of phase 5, its schedule cut by one
    factor to 100 sphere-init steps and 300 data steps (the cuts in the
@@ -95,10 +96,13 @@ the surf stage's SDF:
 16. the offsets_surfs stage: config/offsets_surfs/base_5.cfg at full width
    (5 surfaces, 4 inner) through Trainer.train on the sphere scene, its
    shared encoder and main head loaded from phase 15's sdf.pt
-   (OffsetsSurfs.load_main_sdf), its schedule cut by one factor (1/50;
-   1/100 is the largest that leaves color-init 10 steps, and its test psnr,
-   13.69 dB, sat 0.69 dB above the bar) to 40 offsets-init, 20
-   color-init, 840 first-phase and 100 second-phase steps (the cuts in the
+   (OffsetsSurfs.load_main_sdf), its schedule cut by one factor (1/25: at
+   1/50 the test psnr of 10 runs spread over 13.84-16.24 dB, one run in 14
+   had fallen below the bar, and the runs whose occupancy grid dipped to
+   ~2% scored lowest; at 1/25 the median rose to ~17.9 dB, but one run in
+   15 still fell below the bar after its grid collapsed; chip_stage_runs.py
+   repeats the stage) to 80 offsets-init, 40 color-init, 1,680 first-phase
+   and 200 second-phase steps (the cuts in the
    ``offsets_setup`` line): the median step of each phase, the
    offsets-init loss (it must fall), the occupancy refreshes;
 17. the rest of that stage: the checkpoint loaded into a fresh
@@ -152,6 +156,19 @@ TRAIN_CFG = os.path.join(REPO, "config", "train_config.cfg")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# instructions a second the card issues, a thread's each: 4 warp
+# instructions a clock on each of the 132 SMs, 128 lanes, the float32 rate
+# above (an FMA, two flops, a lane a clock) halved
+ISSUE_PER_S = F32_FLOPS_PER_S / 2
+# operations of one point of K7's passes, as the plain version
+# (ops/samplers.py::_probe, OccupancyGrid.check_occupancy) computes it: the
+# midpoint t0 + (k + 0.5) * seg (4, the step's conversion included), the
+# point o + t d (6), the voxel coordinate p / extent + 0.5 times res (9,
+# the quotient counted as one operation: a product where the extent is a
+# power of two), floors (3), conversions (3), the bounds tests (8: six
+# comparisons, two ands), the clamps (6), the row-major index (4), one
+# byte load (1) and the mask's two ands (2)
+K7_OPS_A_POINT = 46
 # operations counted for the trace bound: one slab box test of an inner
 # node, one Moller-Trumbore test of a real leaf triangle (fmas counted as
 # two)
@@ -177,9 +194,9 @@ SURF_DATA_STEPS = 300
 SURF_PSNR_BAR = 16.0
 # the offsets_surfs stage: config/offsets_surfs/base_5.cfg, its schedule cut
 # by one factor; its test PSNR must pass tests/test_pipeline_e2e.py's
-# offsets bar
+# offsets bar (1/25: see phase 16 above)
 OFFSETS_CFG = os.path.join(REPO, "config", "offsets_surfs", "base_5.cfg")
-OFFSETS_SCALE = 1 / 50
+OFFSETS_SCALE = 1 / 25
 OFFSETS_PSNR_BAR = 13.0
 CHUNK_SURF = 16384  # rays of a render chunk (base.cfg's test_rays_batch_size)
 PROFILED_STEPS = 3
@@ -923,19 +940,6 @@ def _k1_at_the_surf_shape(rows, upd, nr_rows):
     return k1
 
 
-def _refreshed_grid(device, res=256):
-    """A 256^3 grid after a refresh at the stage's start: |sdf| of a sphere
-    of radius 0.5 at the voxel centres, occupancy from the logistic density
-    at the first phase's beta (variance 0.3)."""
-    from volsurfs_tpu_torch.ops.occupancy import make_grid
-    from volsurfs_tpu_torch.utils.schedules import get_logistic_beta_from_variance
-
-    grid = make_grid(res, 2.0, sphere_roi_radius=1.0, device=device)
-    values = torch.abs(torch.linalg.norm(grid.voxel_centers(), dim=-1) - 0.5)
-    grid = grid.update_values(values)
-    return grid.update_occupancy_with_sdf(float(get_logistic_beta_from_variance(0.3)))
-
-
 def _voxels_read(grid, rays_o, rays_d, spans, nr_steps=512):
     """The distinct voxels that the probes and the march of each (t0, t1)
     span read (steps of zero length read none)."""
@@ -955,27 +959,17 @@ def phase_occupancy_sampler(device, reel):
     """K7 against its plain version on a refreshed 256^3 grid: the train
     step's 512 rays (drawn from the train reel) and a 16,384-ray render
     chunk of the test camera, clipped to the occupied probes as base.cfg
-    samples (64 a ray): z, mask, the clipped interval and the spacing bit
-    for bit."""
+    samples (64 a ray; kernel_bench.k7_cases): z, mask, the clipped
+    interval and the spacing bit for bit. The bound: the distinct voxels
+    read and the rays' bytes, and the operations of the points of both
+    passes on rays whose step is not 0 (K7_OPS_A_POINT a point) at the
+    card's issue rate."""
     from volsurfs_tpu_torch import kernel_bench as kb
-    from volsurfs_tpu_torch.datasets import sphere_scene
-    from volsurfs_tpu_torch.datasets.tensor_reel import get_next_rays_batch
     from volsurfs_tpu_torch.ops import samplers as SP
-    from volsurfs_tpu_torch.ops.raycast import intersect_bounding_primitive, make_bounding_sphere
 
-    grid = _refreshed_grid(device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    batch = get_next_rays_batch(reel, gen, kb.TRAIN_RAYS, jitter_pixels=True)
-    rays_o, rays_d, _ = sphere_scene.test_camera(device)
-    shapes = {f"train_{kb.TRAIN_RAYS}": (batch["rays_o"], batch["rays_d"]),
-              f"chunk_{kb.CHUNK}": (rays_o[kb.CHUNK:2 * kb.CHUNK].contiguous(),
-                                    rays_d[kb.CHUNK:2 * kb.CHUNK].contiguous())}
     results = {}
-    for shape, (o, d) in shapes.items():
-        rc = intersect_bounding_primitive(make_bounding_sphere(1.0), o, d)
-        tn, tf = rc["t_near"].contiguous(), rc["t_far"].contiguous()
-        jitter = torch.rand(o.shape[0], 1, generator=gen, device=device)
-        args = (o, d, tn, tf, grid, jitter, 1e-4, 3, 64, 512, 512)
+    for shape, args in kb.k7_cases(device, reel, kb.k7_grid(device)).items():
+        o, d, tn, tf, grid = args[:5]
         got, ref = SP.occupancy_samples(*args), SP.occupancy_samples_reference(*args)
         differ = {name: int((a != b).sum()) for name, a, b in
                   zip(("z", "mask", "t_near", "t_far", "const_dist"), got, ref)}
@@ -984,13 +978,15 @@ def phase_occupancy_sampler(device, reel):
         R = o.shape[0]
         voxels = _voxels_read(grid, o, d, ((tn, tf), (got[2], got[3])))
         nbytes = R * (12 + 12 + 4 + 4 + 4) + voxels + R * 64 * (4 + 1) + R * 12
-        flops = R * 2 * 512 * 15  # a point, its voxel and its ballot: ~15 flops
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        # the points of the probe (rays with tf > tn) and of the march
+        # (rays whose clipped interval is not empty)
+        points = 512 * (int((tf > tn).sum()) + int((got[3] > got[2]).sum()))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, points * K7_OPS_A_POINT / ISSUE_PER_S
         fn = lambda: SP.occupancy_samples(*args)  # noqa: E731
         results[shape] = dict(
             shape=shape, rays=R, samples=int(got[1].sum()), voxels_read=voxels,
-            entries_differ=differ, max_abs_err=0.0, ms=kb.time_ms(fn),
-            device_ms=kb.device_ms(fn),
+            points=points, ops_a_point=K7_OPS_A_POINT, entries_differ=differ, max_abs_err=0.0,
+            ms=kb.time_ms(fn), device_ms=kb.device_ms(fn),
             plain_ms=kb.time_ms(lambda: SP.occupancy_samples_reference(*args), reps=5, warmup=1),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
@@ -1270,11 +1266,14 @@ def make_offsets(hp, device, seed):
 
 def phase_offsets_train(device, mv, run_dir, sdf_state):
     """The offsets_surfs stage's training through Trainer.train from the surf
-    stage's SDF (phase 16): each phase's median step and losses, the
-    occupancy refreshes. Returns the trainer."""
+    stage's SDF (phase 16): each phase's median step and losses; the
+    occupancy refreshes, each with its step, the grid's occupied share
+    after it, the variance and logistic beta it took and the last step's
+    loss. Returns the trainer."""
     from volsurfs_tpu_torch.params.params import TrainParams
     from volsurfs_tpu_torch.training import callbacks as CB
     from volsurfs_tpu_torch.training.trainer import Trainer
+    from volsurfs_tpu_torch.utils.schedules import get_logistic_beta_from_variance
 
     hp, cuts = offsets_hyper_params()
     t = time.perf_counter()
@@ -1285,13 +1284,26 @@ def phase_offsets_train(device, mv, run_dir, sdf_state):
                       callbacks=CB.CallbacksGroup([timer]))
     refreshes = []
     refresh = method.update_occupancy_grid
+    last_loss = [float("nan")]
 
     def recorded_refresh():
         refresh()
-        refreshes.append([method.iter_nr, float(method.grid.occupancy_fraction())])
+        # the variance and beta update_occupancy_grid took
+        variance = min(0.8, float(method._variance(method.iter_nr)))
+        refreshes.append([method.iter_nr, float(method.grid.occupancy_fraction()), variance,
+                          float(get_logistic_beta_from_variance(variance)), last_loss[0]])
 
     method.update_occupancy_grid = recorded_refresh
-    emit("offsets_setup", setup_s=time.perf_counter() - t, cuts=cuts, surfaces=method.nr_surfs,
+    # the variance schedule under the cut: 0.7 at color-init's end to 1.0 at
+    # the first phase's; the refresh's capped at 0.8
+    variance = dict(start_iter=hp.color_init_phase_end_iter, end_iter=hp.first_phase_end_iter,
+                    start=hp.first_phase_variance_start_value,
+                    end=hp.first_phase_variance_end_value,
+                    refresh_cap_0_8_at_iter=next(
+                        (i for i in range(hp.training_end_iter + 1)
+                         if method._variance(i) >= np.float32(0.8)), None))
+    emit("offsets_setup", setup_s=time.perf_counter() - t, cuts=cuts, scale=OFFSETS_SCALE,
+         variance_schedule=variance, surfaces=method.nr_surfs,
          main_surf_idx=method.main_surf_idx, delta_surfs=method.delta_surfs,
          params={k: sum(p.numel() for p in m.parameters()) for k, m in method.models.items()},
          rays_per_step=hp.training_rays_batch_size, lr=hp.lr)
@@ -1302,6 +1314,7 @@ def phase_offsets_train(device, mv, run_dir, sdf_state):
         phases.append(m.phase(it - 1))
         buckets.append(trainer._rays_bucket)
         rgb.append(float(losses["rgb"]) if "rgb" in losses else float("nan"))
+        last_loss[0] = float(losses["loss"])
 
     t = time.perf_counter()
     trainer.train(callback=log)
@@ -1503,12 +1516,13 @@ def main():
                           "offsets_stage": offsets["occupancy_sampler"]},
         plain_launches=surf["occupancy_sampler_reference"]
         + offsets["occupancy_sampler_reference"], shape=k7["shape"],
-        registers=resources.get("occupancy_samples_kernel", {}).get("registers"),
+        registers={n: r.get("registers") for n, r in resources.items()
+                   if n.startswith("occupancy_samples")},
         entries_differ=k7["entries_differ"], **{k: k7[k] for k in keys}))
     # K8 at the offsets_surfs step's shapes (the k8_volrender lines hold both paths')
     for kernel, count, plain, fn, line in (
             ("combine_samples", "combine_samples", "combine_samples_reference",
-             "combine_samples_kernel", "volsurfs_tpu/ops/samples.py:148"),
+             "combine_samples_c3_kernel", "volsurfs_tpu/ops/samples.py:148"),
             ("neus_transmittance_forward", "neus_transmittance_fwd",
              "neus_transmittance_reference", "neus_transmittance_forward_kernel",
              "volsurfs_tpu/ops/volume_rendering.py:36"),

@@ -476,28 +476,31 @@ def test_permuto_backward_kernel_zero_cotangents(cuda):
     assert bool(d_table.any())
 
 
-def _refreshed_grid(device, res=256):
+def _refreshed_grid(device, res=256, extent=2.0):
     """A grid at the surf stage's shape after a refresh: |sdf| of a sphere
     of radius 0.4, occupancy from the logistic density at beta 20."""
     from volsurfs_tpu_torch.ops.occupancy import make_grid
 
-    grid = make_grid(res, 2.0, sphere_roi_radius=1.0, device=device)
+    grid = make_grid(res, extent, sphere_roi_radius=extent / 2, device=device)
     centers = grid.voxel_centers()
     grid = grid.update_values(torch.abs(torch.linalg.norm(centers, dim=-1) - 0.4))
     return grid.update_occupancy_with_sdf(20.0)
 
 
+@pytest.mark.parametrize("extent", [2.0, 3.0])
 @pytest.mark.parametrize("nr_rays", [512, 16384])
 @pytest.mark.parametrize("clip", [False, True])
-def test_occupancy_sampler_kernel_matches_plain(cuda, nr_rays, clip):
+def test_occupancy_sampler_kernel_matches_plain(cuda, nr_rays, clip, extent):
     """K7 against its plain version on a refreshed 256^3 grid, for rays
     from a sphere around the scene, some missing it: z, mask, the clipped
-    interval and the spacing bit for bit."""
+    interval and the spacing bit for bit, on a grid spanning 2 (the
+    kernels that multiply by the exact reciprocal) and 3 (the kernel that
+    divides)."""
     from volsurfs_tpu_torch.ops import samplers as SP
     from volsurfs_tpu_torch.ops.raycast import intersect_bounding_primitive, make_bounding_sphere
 
     rng = np.random.default_rng(nr_rays)
-    grid = _refreshed_grid(cuda)
+    grid = _refreshed_grid(cuda, extent=extent)
     o = rng.standard_normal((nr_rays, 3)).astype(np.float32)
     o = 2.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
     d = -o + 0.6 * rng.standard_normal((nr_rays, 3)).astype(np.float32)
@@ -513,6 +516,49 @@ def test_occupancy_sampler_kernel_matches_plain(cuda, nr_rays, clip):
     for name, a, b in zip(("z", "mask", "t_near", "t_far", "const_dist"), got, ref):
         assert torch.equal(a, b), (name, int((a != b).sum()))
     assert int(got[1].sum()) > nr_rays  # the rays that hit the sphere took samples
+
+
+@pytest.mark.parametrize("R", [1024, 4096])
+@pytest.mark.parametrize("nr_march", [32, 512, 2048])
+@pytest.mark.parametrize("nr_probe", [0, 512])
+def test_occupancy_sampler_kernel_edge_rays(cuda, nr_probe, nr_march, R):
+    """K7 on a thin shell (|sdf| of a sphere of radius 0.4 at beta 200): rays
+    from the centre whose whole interval lies in the shell, rays whose
+    interval holds no occupied voxel (inside the shell, or outside the grid),
+    rays with t_near == t_far, and rays through the sphere, at both probe
+    counts and march lengths from one run of 32 steps to the longest, with
+    four warps a ray (1,024 rays) and a warp a ray (4,096): z, mask, the
+    clipped interval and the spacing bit for bit."""
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops.occupancy import make_grid
+
+    grid = make_grid(256, 2.0, sphere_roi_radius=1.0, device=cuda)
+    grid = grid.update_values(torch.abs(torch.linalg.norm(grid.voxel_centers(), dim=-1) - 0.4))
+    grid = grid.update_occupancy_with_sdf(200.0)
+    rng = np.random.default_rng(nr_probe + nr_march + R)
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.zeros((R, 3), np.float32)
+    t = rng.uniform(0.0, 1.0, (R, 2)).astype(np.float32)
+    kinds = np.arange(R) % 5
+    spans = {0: (0.38, 0.42), 1: (0.0, 0.2), 2: (3.0, 4.0), 3: (0.4, 0.4)}
+    for kind, (lo, hi) in spans.items():
+        t[kinds == kind] = (lo, hi)
+    through = kinds == 4  # from a sphere of radius 2 towards the centre
+    o[through] = -2.0 * d[through]
+    t[through] = (1.0, 3.0)
+    tn, tf = (torch.from_numpy(np.ascontiguousarray(t[:, i:i + 1])).to(cuda) for i in (0, 1))
+    jitter = torch.from_numpy(rng.uniform(0, 1, (R, 1)).astype(np.float32)).to(cuda)
+    args = (torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda), tn, tf, grid, jitter,
+            1e-4, 3, 64, nr_march, nr_probe)
+    got = SP.occupancy_samples(*args)
+    ref = SP.occupancy_samples_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("z", "mask", "t_near", "t_far", "const_dist"), got, ref):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    taken = got[1].sum(dim=1).cpu().numpy()
+    assert (taken[kinds == 0] == 64).all() and (taken[(kinds == 1) | (kinds == 2)] == 0).all()
+    assert (taken[kinds == 3] == 0).all() and taken[through].sum() > 0
 
 
 def test_surf_steps_on_the_card(cuda, tmp_path):
@@ -604,6 +650,59 @@ def test_combine_kernel_edge_rows(cuda):
         a, b = TS.update_dt(a.replace(z=za)), TS.update_dt(b.replace(z=zb))
         va = torch.randn(64, Sa, 3, device=cuda)
         vb = torch.randn(64, Sb, 3, device=cuda)
+        got = TS.combine(a, b, 1e-4, va, vb)
+        ref = TS.combine_reference(a, b, 1e-4, va, vb)
+        _check_k8("combine", _combine_outputs(*got), _combine_outputs(*ref))
+
+
+def _combine_rows(device, rng, R, Sa, Sb, kind):
+    """Sample sets a and b of R rays (kernel_bench.k8_samples: sorted valid
+    prefixes, every 16th ray empty) made into kind: "sorted" as drawn;
+    "unsorted", each set's depths shuffled within its row; "holes", masks
+    with valid slots after invalid ones; "ties", b's depths copies of a's
+    in the same slots or a slot apart (the merged row a run of equal pairs
+    across the 128-slot tiles' edges)."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import samples as TS
+
+    a, b = kb.k8_samples(device, rng, R, Sa), kb.k8_samples(device, rng, R, Sb)
+    za, zb, ma, mb = a.z.clone(), b.z.clone(), a.mask.clone(), b.mask.clone()
+    if kind == "unsorted":
+        za = za[:, torch.randperm(Sa, device=device)] if Sa else za
+        zb = zb[:, torch.randperm(Sb, device=device)] if Sb else zb
+        ma = torch.ones_like(ma)
+        mb = torch.ones_like(mb)
+        ma[1::3], mb[2::3] = a.mask[1::3], b.mask[2::3]
+    elif kind == "holes":
+        ma = torch.from_numpy(rng.uniform(0, 1, (R, Sa)) < 0.6).to(device)
+        mb = torch.from_numpy(rng.uniform(0, 1, (R, Sb)) < 0.6).to(device)
+    elif kind == "ties":  # Sa > Sb
+        even = torch.arange(R, device=device)[:, None] % 2 == 0
+        zb = torch.where(even, za[:, :Sb], za[:, 1:Sb + 1])
+        mb = torch.where(even, ma[:, :Sb], ma[:, 1:Sb + 1])
+    return TS.update_dt(a.replace(z=za, mask=ma)), TS.update_dt(b.replace(z=zb, mask=mb))
+
+
+@pytest.mark.parametrize("C", [0, 1, 5, 16])
+@pytest.mark.parametrize("S", [33, 96, 97, 300])
+def test_combine_kernel_rows(cuda, S, C):
+    """K8a at S = Sa + Sb slots on either side of the warp layout's chunks
+    and tiles, carrying C values a slot (staged in shared memory in 16- or
+    4-byte copies, or, at 300 x 16, read from device memory), on sorted
+    rows, rows unsorted within a and within b (ranked by counting), rows
+    with holes in their masks, and rows where a and b share exact depths
+    across tile edges: every output bit for bit against the plain
+    version."""
+    from volsurfs_tpu_torch.ops import samples as TS
+
+    Sa = {33: 17, 96: 64, 97: 64, 300: 200}[S]
+    rng = np.random.default_rng(S + C)
+    torch.manual_seed(S + C)
+    R = 256
+    for kind in ("sorted", "unsorted", "holes", "ties"):
+        a, b = _combine_rows(cuda, rng, R, Sa, S - Sa, kind)
+        va = torch.randn(R, Sa, C, device=cuda) if C else None
+        vb = torch.randn(R, S - Sa, C, device=cuda) if C else None
         got = TS.combine(a, b, 1e-4, va, vb)
         ref = TS.combine_reference(a, b, 1e-4, va, vb)
         _check_k8("combine", _combine_outputs(*got), _combine_outputs(*ref))

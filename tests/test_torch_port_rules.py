@@ -29,7 +29,8 @@ FORBIDDEN = ("jax", "flax", "optax", "volsurfs_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py")]
+    files = [os.path.join(REPO, name)
+             for name in ("chip_smoke.py", "chip_compare.py", "chip_stage_runs.py")]
     for root, _, names in os.walk(os.path.join(REPO, "volsurfs_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

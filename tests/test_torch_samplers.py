@@ -168,6 +168,40 @@ def test_combine_matches_jax():
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
 
 
+@pytest.mark.parametrize("kind", ["unsorted", "holes", "ties"])
+def test_combine_of_unsorted_and_holed_rows_matches_jax(kind):
+    """combine (K8a's plain version) on rows that no sampler gives but the
+    kernel must take alike: "unsorted", each set's depths in random order
+    (some rows all valid, some with their drawn prefix masks); "holes",
+    masks with valid slots after invalid ones; "ties", b's depths copies of
+    a's, in the same slots or a slot apart, with values carried: exact."""
+    rng = np.random.default_rng({"unsorted": 11, "holes": 12, "ties": 13}[kind])
+    n, sa, sb = 128, 40, 24
+    o, d = np.zeros((n, 3), np.float32), np.tile(np.float32([[0, 0, 1]]), (n, 1))
+    t0, t1 = np.full((n, 1), 1.0, np.float32), np.full((n, 1), 3.0, np.float32)
+    za, ma, dta = _sample_pair(rng, n, sa, 1.0, 3.0)
+    zb, mb, dtb = _sample_pair(rng, n, sb, 1.0, 3.0)
+    if kind == "unsorted":
+        za, zb = rng.permuted(za, axis=1), rng.permuted(zb, axis=1)
+        ma[::2], mb[1::2] = True, True
+    elif kind == "holes":
+        ma, mb = rng.uniform(0, 1, (n, sa)) < 0.6, rng.uniform(0, 1, (n, sb)) < 0.6
+    else:
+        even = (np.arange(n) % 2 == 0)[:, None]
+        zb, mb = np.where(even, za[:, :sb], za[:, 1:sb + 1]), np.where(even, ma[:, :sb],
+                                                                       ma[:, 1:sb + 1])
+    ja, ta = _both_samples(o, d, t0, t1, za, ma, dta)
+    jb, tb = _both_samples(o, d, t0, t1, zb, mb, dtb)
+    va = rng.standard_normal((n, sa, 3)).astype(np.float32)
+    vb = rng.standard_normal((n, sb, 3)).astype(np.float32)
+    ref, ref_v = JS.combine(ja, jb, 1e-4, jnp.asarray(va), jnp.asarray(vb))
+    got, got_v = TS.combine(ta, tb, 1e-4, torch.from_numpy(va), torch.from_numpy(vb))
+    for name in ("z", "dt", "mask", "max_dt"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+    assert 0 < got.mask.numpy().sum() < ma.sum() + mb.sum()  # the chain dropped some
+
+
 def test_volume_rendering_matches_jax(monkeypatch):
     rng = np.random.default_rng(4)
     n, s = 400, 40

@@ -13,15 +13,30 @@
 //
 // Three kernels, each one launch:
 //
-// - combine_samples_kernel (K8a), a thread a ray: the stable merge of a
-//   ray's two sample sets, the keep-chain (a sample closer than min_dist to
-//   the last one kept is dropped), the compaction (kept samples first, then
-//   the dropped ones in merge order, then a's and b's invalid slots) with
-//   the carried values [C], and update_dt. The merge is an insertion of the
-//   concatenated row into a column of shared memory: on sorted rows, as
-//   the samplers give, that is a two-pointer merge, and on any row it
-//   orders as a stable argsort does, so the result equals the plain
-//   version's bit for bit.
+// - combine_samples_kernel (K8a), a warp a ray: the stable merge of a ray's
+//   two sample sets, the keep-chain (a sample closer than min_dist to the
+//   last one kept is dropped), the compaction (kept samples first, then the
+//   dropped ones in merge order, then a's and b's invalid slots) with the
+//   carried values [C], and update_dt. The merge places each slot of the
+//   concatenated row [a | b] (invalid ones at kInvalidZ) at its rank, the
+//   number of slots strictly smaller plus the equal ones before it, which is
+//   the stable argsort's place: on rows sorted after masking, as every
+//   caller gives (K7's rows, K8c's depths, combine's own outputs), a_i goes
+//   to i + #(b < a_i) and b_j to j + #(a <= b_j) by binary searches of the
+//   row staged in shared memory; a row that a ballot finds unsorted is
+//   ranked by counting, all pairs. The keep-chain takes each slot's
+//   successor, the first valid slot at least min_dist further (the four
+//   next slots tested side by side, a binary search where none holds: the
+//   test is monotone on the sorted row); a row whose every successor is the
+//   next valid slot keeps them all, any other marks its chain from the head
+//   by pointer doubling (log2 of its length rounds, however the row drops
+//   its samples; one lane walking the chain's jumps measured the same). The
+//   compaction places the slots by ballot prefixes, and the outputs and the
+//   row's S x C carried values (staged in shared memory by cp.async while
+//   the rest runs) leave as coalesced runs, a lane a float. One kernel a
+//   tile width of 1-4 chunks of 32 slots: a warp's dependent steps are this
+//   kernel's time, so each step issues its chunks' shared-memory loads
+//   together before it uses them.
 // - neus_transmittance_{forward,backward}_kernel (K8b), a warp a row: the
 //   exclusive product of (1 - alpha) + 1e-6 over the valid samples, the
 //   weights alpha T and the background transmittance (T at sample count -
@@ -56,7 +71,8 @@
 // load) on grids of a few blocks; a warp a row loads whole lines and puts
 // thousands of warps on the card, so what remains is a launch's few
 // microseconds and a row's dependent chain (the loads, five shuffle rounds
-// a scan; in K8c three scans a surface, the surfaces one after another).
+// a scan; in K8c three scans a surface, the surfaces one after another; in
+// K8a the searches, ~7 rounds each, and the chain's marking).
 //
 // Rounding: built with -fmad=false, every product, sum, comparison and
 // division rounds as the plain version's float32 torch op does. combine
@@ -68,13 +84,17 @@
 // K8b and K8c agree with it within a few float32 roundings a sample (the
 // tolerances are stated in kernel_bench.k8_check).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kInvalidZ = 1e10f;
-constexpr unsigned short kKept = 0x8000;  // the keep-chain's mark on a slot's source
+// K8a's marks beside a slot's source index (S <= 4,096 takes 12 bits)
+constexpr unsigned short kKept = 0x8000;   // on the keep-chain
+constexpr unsigned short kValid = 0x4000;  // valid in its input set
+constexpr unsigned short kSource = 0x3fff;
 constexpr size_t kSmemLimit = 48 * 1024;  // static launch limit of dynamic shared memory
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kChunks = 4;             // chunks of 32 samples a lane holds at once
@@ -86,14 +106,6 @@ __device__ __forceinline__ float clamp_dt(float x, float max_dt) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// threads a block such that bytes_per_slot x S slots a thread fit the
-// static shared-memory limit (a column of shared memory a thread)
-int threads_for(int S, size_t bytes_per_slot) {
-  int nt = 32;
-  while (nt > 1 && (size_t)nt * S * bytes_per_slot > kSmemLimit) nt >>= 1;
-  return nt;
-}
 
 // Lets a kernel take smem bytes of dynamic shared memory: above the default
 // 48 KB it raises the kernel's limit, once for each larger size (allowed is
@@ -212,85 +224,477 @@ __host__ __device__ __forceinline__ int importance_warp_floats(int S, int K, boo
   return 2 * Sp + (staged ? 2 * Sp + ((S * K + 3) & ~3) + ((Sp / 4 + 3) & ~3) : 0);
 }
 
-}  // namespace
-
-extern "C" __global__ void combine_samples_kernel(
-    const float *__restrict__ za, const uint8_t *__restrict__ ma, const float *__restrict__ zb,
-    const uint8_t *__restrict__ mb, const float *__restrict__ va, const float *__restrict__ vb,
-    const float *__restrict__ t_far, const float *__restrict__ max_dt_a,
-    const float *__restrict__ max_dt_b, float min_dist, float *__restrict__ z_out,
-    uint8_t *__restrict__ mask_out, float *__restrict__ dt_out, float *__restrict__ v_out,
-    float *__restrict__ max_dt_out, int Sa, int Sb, int C, long long R) {
-  extern __shared__ float combine_smem[];
-  const int S = Sa + Sb;
-  const int nt = blockDim.x, tid = threadIdx.x;
-  const long long r = (long long)blockIdx.x * nt + tid;
-  if (r >= R) return;  // no barrier below
-  // slot p of this thread's row: key[p * nt + tid] (its depth) and
-  // src[p * nt + tid] (its index in the concatenated row [a | b])
-  float *key = combine_smem;
-  unsigned short *src = reinterpret_cast<unsigned short *>(combine_smem + (size_t)S * nt);
-  auto valid = [&](int i) {
-    return i < Sa ? ma[r * Sa + i] != 0 : mb[r * Sb + (i - Sa)] != 0;
-  };
-
-  // 1. the stable merge: insert a's slots, then b's, each after every slot
-  // of equal depth (invalid slots at kInvalidZ)
-  for (int i = 0; i < S; ++i) {
-    const float zi = valid(i) ? (i < Sa ? za[r * Sa + i] : zb[r * Sb + (i - Sa)]) : kInvalidZ;
-    int p = i;
-    while (p > 0 && key[(p - 1) * nt + tid] > zi) {
-      key[p * nt + tid] = key[(p - 1) * nt + tid];
-      src[p * nt + tid] = src[(p - 1) * nt + tid];
-      --p;
-    }
-    key[p * nt + tid] = zi;
-    src[p * nt + tid] = (unsigned short)i;
-  }
-
-  // 2. the keep-chain
-  float last = -1e10f;
-  int kept = 0;
-  for (int p = 0; p < S; ++p) {
-    const int i = src[p * nt + tid];
-    const float zp = key[p * nt + tid];
-    if (valid(i) && zp - last >= min_dist) {
-      last = zp;
-      src[p * nt + tid] = (unsigned short)(i | kKept);
-      ++kept;
-    }
-  }
-
-  // 3. the compaction: the kept slots, then the others, each in merge
-  // order; dt of each kept slot from the next (the last from t_far)
-  const float mdt = fmaxf(max_dt_a[r], max_dt_b[r]);
-  const long long row = r * S;
-  int q = 0;
-  float prev = 0.0f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int p = 0; p < S; ++p) {
-      const unsigned short e = src[p * nt + tid];
-      const bool keep = (e & kKept) != 0;
-      if (keep != (pass == 0)) continue;
-      const int i = e & ~kKept;
-      const float zq = keep ? key[p * nt + tid] : kInvalidZ;
-      z_out[row + q] = zq;
-      mask_out[row + q] = keep ? 1 : 0;
-      if (keep) {
-        if (q > 0) dt_out[row + q - 1] = clamp_dt(zq - prev, mdt);
-        prev = zq;
-      } else {
-        dt_out[row + q] = 0.0f;
-      }
-      const float *v = i < Sa ? va + (r * Sa + i) * C : vb + (r * Sb + (i - Sa)) * C;
-      for (int c = 0; c < C; ++c) v_out[(row + q) * C + c] = v[c];
-      ++q;
-    }
-  }
-  if (kept > 0) dt_out[row + kept - 1] = clamp_dt(t_far[r] - prev, mdt);
-  max_dt_out[r] = mdt;
+// K8a's shared memory a warp, in bytes: the order keys of the row [a | b],
+// then the merged row's depths; the merged depths; the merged slots'
+// sources; two arrays of slot indices (the next valid slot, the keep-chain's
+// successors, the jumps of its marking, then the output's sources); the
+// keep-chain's marks; and the staged_values carried values of [a | b].
+// Every array, and every warp's share, starts on 16 bytes.
+__host__ __device__ __forceinline__ size_t combine_warp_bytes(int S, int staged_values) {
+  const size_t S4 = (size_t)((S + 3) & ~3), S8 = (size_t)((S + 8) & ~7);
+  return 4 * S4 + 4 * S4 + 2 * ((S4 + 7) & ~(size_t)7) + 2 * S8 + 2 * S8 +
+         ((S8 + 15) & ~(size_t)15) + 4 * (size_t)((staged_values + 3) & ~3);
 }
 
+// K8a stages a row's carried values (S x C floats) in shared memory up to
+// this many; a longer row's are read from device memory in the last step
+constexpr int kStagedValues = 4096;
+
+// the float's place in torch's (and JAX's) sort as an unsigned key: -0 as
+// +0, every NaN after everything else
+__device__ __forceinline__ unsigned order_key(float x) {
+  if (x != x) return 0xffffffffu;
+  const unsigned u = __float_as_uint(x == 0.0f ? 0.0f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ int highest_pow2(int n) { return n > 0 ? 1 << (31 - __clz(n)) : 0; }
+
+// One ray of combine, a warp: the merge by ranks, the keep-chain by
+// successors, the compaction by ballots, then the outputs (see the header).
+// A lane holds slots lane + 32 c of a tile of NC chunks (NC = 4 and a loop
+// over tiles past 128 slots, else just the chunks the row has). A warp's
+// dependent steps are this kernel's time, so every step reads shared
+// memory at clamped indices, outside any branch, and only its stores are
+// predicated: the chunks' loads then overlap instead of waiting in turn.
+template <int NC>
+__device__ __forceinline__ void combine_ray(
+    const float *__restrict__ za, const uint8_t *__restrict__ ma, const float *__restrict__ zb,
+    const uint8_t *__restrict__ mb, const float *__restrict__ va, const float *__restrict__ vb,
+    float tf, float mdt, float min_dist, float *__restrict__ z_out,
+    uint8_t *__restrict__ mask_out, float *__restrict__ dt_out, float *__restrict__ v_out,
+    int Sa, int Sb, int C, bool staged, unsigned char *smem, int lane) {
+  constexpr int T = 32 * NC;  // slots a tile
+  const int S = Sa + Sb;
+  if (S == 0) return;
+  const bool one_tile = S <= T;
+  const int S4 = (S + 3) & ~3, S8 = (S + 8) & ~7;
+  unsigned *uk = reinterpret_cast<unsigned *>(smem);  // order keys of [a | b]; then oz
+  float *oz = reinterpret_cast<float *>(smem);        // the output's depths
+  float *mz = reinterpret_cast<float *>(smem) + S4;   // the merged row's depths
+  unsigned short *msrc = reinterpret_cast<unsigned short *>(mz + S4);  // source | kValid
+  unsigned short *nxt = msrc + ((S4 + 7) & ~7);  // keep-chain successors (S: none), [S + 1]
+  unsigned short *jmp = nxt + S8;  // the next valid slot; the doubling's jumps; then osrc
+  unsigned short *osrc = jmp;      // source | kKept of each output slot
+  uint8_t *kept = reinterpret_cast<uint8_t *>(jmp + S8);  // the keep-chain's marks
+  float *sv = reinterpret_cast<float *>(kept + ((S8 + 15) & ~15));  // staged values
+
+  // 1. the keys of the concatenated row (invalid slots at kInvalidZ) and
+  // their order keys; a one-tile row's stay in registers. Whether a and b
+  // are each sorted (then a slot's rank is two sums, else a count), from
+  // each slot's and its left neighbour's key by shuffles.
+  float key[NC];
+  bool valid[NC];
+  unsigned u[NC];
+  auto load = [&](int base) {
+    float z[NC];
+    uint8_t m[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {  // the chunks' loads in flight together
+      const int i = min(base + 32 * c + lane, S - 1);
+      z[c] = *(i < Sa ? za + i : zb + (i - Sa));
+      m[c] = *(i < Sa ? ma + i : mb + (i - Sa));
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = base + 32 * c + lane;
+      valid[c] = (i < S) & (m[c] != 0);
+      key[c] = valid[c] ? z[c] : kInvalidZ;
+      u[c] = i < S ? order_key(key[c]) : 0u;
+    }
+  };
+  int nans = 0;
+  bool disorder = false;
+  unsigned left = 0;  // the key left of the tile
+  for (int base = 0; base < S; base += T) {
+    load(base);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = base + 32 * c + lane;
+      const unsigned up = __shfl_up_sync(kAll, u[c], 1);
+      const unsigned last = c == 0 ? left : __shfl_sync(kAll, u[c == 0 ? 0 : c - 1], 31);
+      const unsigned prev = lane == 0 ? last : up;
+      disorder = disorder || (i < S && i != 0 && i != Sa && prev > u[c]);
+      nans += __popc(__ballot_sync(kAll, i < S && key[c] != key[c]));
+      if (i < S) uk[i] = u[c];
+    }
+    left = __shfl_sync(kAll, u[NC - 1], 31);
+  }
+  const bool unsorted = __any_sync(kAll, disorder);
+  // the carried values' copy into shared memory, in flight until the last
+  // step needs them: 16 bytes a copy where both rows allow it, else 4
+  if (staged) {
+    const bool wide = (Sa * C) % 4 == 0 && (Sb * C) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(va) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(vb) % 16 == 0;
+    if (wide) {
+      for (int e = 4 * lane; e < S * C; e += 128) {
+        __pipeline_memcpy_async(sv + e, e < Sa * C ? va + e : vb + (e - Sa * C), 16);
+      }
+    } else {
+      for (int e = lane; e < S * C; e += 32) {
+        __pipeline_memcpy_async(sv + e, e < Sa * C ? va + e : vb + (e - Sa * C), sizeof(float));
+      }
+    }
+    __pipeline_commit();
+  }
+  __syncwarp();
+
+  // 2. the merge: slot i of [a | b] to its rank, the slots strictly smaller
+  // plus the equal ones before it (the stable argsort's place). On sorted
+  // rows a_i goes to i + #(b < a_i) and b_j to j + #(a <= b_j), by binary
+  // searches of the staged keys, the chunks' searches side by side.
+  const int top_ab = highest_pow2(Sa > Sb ? Sa : Sb);
+  for (int base = 0; base < S; base += T) {
+    if (!one_tile) load(base);
+    int rank[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) rank[c] = 0;
+    if (!unsorted) {
+      const unsigned *arr[NC];
+      int n[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int i = base + 32 * c + lane;
+        arr[c] = i < Sa ? uk + Sa : uk;  // a's slots search b's keys, b's search a's
+        n[c] = i < Sa ? Sb : (i < S ? Sa : 0);
+      }
+      // a probe past the end reads the last key: if it is below, so are
+      // all, and the count, clamped to n at the end, is n
+      for (int step = top_ab; step > 0; step >>= 1) {
+        unsigned v[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[c] = arr[c][max(min(rank[c] + step, n[c]) - 1, 0)];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int i = base + 32 * c + lane;
+          // a's slots count b's keys below theirs, b's count a's at or below
+          const bool below = (v[c] < u[c]) | ((i >= Sa) & (v[c] == u[c]));
+          rank[c] = below ? rank[c] + step : rank[c];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int i = base + 32 * c + lane;
+        rank[c] = min(rank[c], n[c]) + (i < Sa ? i : i - Sa);
+      }
+    } else {
+      for (int k = 0; k < S; ++k) {
+        const unsigned v = uk[k];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int i = base + 32 * c + lane;
+          rank[c] += (v < u[c] || (v == u[c] && k < i)) ? 1 : 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = base + 32 * c + lane;
+      if (i < S) {
+        mz[rank[c]] = key[c];
+        msrc[rank[c]] = (unsigned short)(i | (valid[c] ? kValid : 0));
+      }
+    }
+  }
+  __syncwarp();
+  const int nn = S - nans;  // the merged row's NaNs come last
+
+  // 3. jmp[p]: the first valid slot at or after p (S if none; NaNs are
+  // never kept), from the row's end by ballots; the marks cleared
+  int carry = S;
+  for (int base = (S - 1) / T * T; base >= 0; base -= T) {
+    unsigned b[NC];
+    unsigned short e[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) e[c] = msrc[min(base + 32 * c + lane, S - 1)];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = base + 32 * c + lane;
+      b[c] = __ballot_sync(kAll, (p < nn) & ((e[c] & kValid) != 0));
+    }
+#pragma unroll
+    for (int c = NC - 1; c >= 0; --c) {
+      const int p0 = base + 32 * c, p = p0 + lane;
+      const unsigned here = b[c] & (kAll << lane);
+      if (p < S) {
+        jmp[p] = (unsigned short)(here ? p0 + __ffs(here) - 1 : carry);
+        kept[p] = 0;
+      }
+      carry = b[c] ? p0 + __ffs(b[c]) - 1 : carry;
+    }
+  }
+  if (lane == 0) {
+    jmp[S] = (unsigned short)S;
+    nxt[S] = (unsigned short)S;
+  }
+  __syncwarp();
+
+  // 4. the keep-chain's successors: nxt[p], the first valid slot k > p with
+  // z_k - z_p >= min_dist (monotone in k on the sorted row, so the first k
+  // where it holds, then jmp the valid one from there): the four slots
+  // after p first, side by side, then, for the warp's lanes none of them
+  // settles, a binary search from p + 5. The chain's head the same from
+  // -1e10, as the plain version starts, in every lane alike. A row whose
+  // every valid slot's successor is the next valid one keeps them all.
+  const int top = highest_pow2(nn);
+  int head;
+  {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = mz[max(min(k, nn - 1), 0)];
+    head = 4;
+#pragma unroll
+    for (int k = 3; k >= 0; --k) head = (k < nn) & (v[k] - (-1e10f) >= min_dist) ? k : head;
+    if (head == 4 && 4 < nn) {
+      // a probe past nn reads the last slot: if the test fails there, it
+      // fails on all of [0, nn), and head, clamped to nn, is nn
+      for (int step = top; step > 0; step >>= 1) {
+        const int probe = head + step;
+        head = !(mz[min(probe, nn) - 1] - (-1e10f) >= min_dist) ? probe : head;
+      }
+    }
+    head = jmp[min(head, nn)];
+  }
+  bool all_next = true;
+  for (int base = 0; base < S; base += T) {
+    int pos[NC];
+    float zp[NC], w[NC][4];
+    unsigned short e[NC];
+    bool open = false;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = base + 32 * c + lane;
+      zp[c] = mz[min(p, S - 1)];
+      e[c] = msrc[min(p, S - 1)];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[c][k] = mz[max(min(p + 1 + k, nn - 1), 0)];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = base + 32 * c + lane;
+      pos[c] = p + 5;
+#pragma unroll
+      for (int k = 3; k >= 0; --k) {
+        pos[c] = (p + 1 + k < nn) & (w[c][k] - zp[c] >= min_dist) ? p + 1 + k : pos[c];
+      }
+      // only a valid slot's successor is ever followed
+      open = open | ((pos[c] == p + 5) & (p + 5 < nn) & ((e[c] & kValid) != 0));
+    }
+    if (__any_sync(kAll, open)) {
+      // a settled lane's probes find the test holding (or, past nn, the
+      // last slot failing it, and pos is clamped to nn below)
+      for (int step = top; step > 0; step >>= 1) {
+        float v[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[c] = mz[min(pos[c] + step, nn) - 1];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) pos[c] = !(v[c] - zp[c] >= min_dist) ? pos[c] + step : pos[c];
+      }
+    }
+    int jn[NC], jp[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = base + 32 * c + lane;
+      jn[c] = jmp[min(pos[c], nn)];
+      jp[c] = jmp[min(p + 1, S)];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = base + 32 * c + lane;
+      const int n = p < nn ? jn[c] : S;
+      const bool jump = (p < nn) & ((e[c] & kValid) != 0) & (n != jp[c]);
+      all_next = all_next & !jump;
+      if (p < S) nxt[p] = (unsigned short)n;
+    }
+  }
+  all_next = __all_sync(kAll, all_next) && head == jmp[0];
+  __syncwarp();
+
+  // 5. mark the chain head, nxt[head], ... by pointer doubling (with
+  // all_next: every valid slot, which the compaction reads from kValid):
+  // before round k the chain's first 2^k slots are marked and J jumps 2^k
+  // links; each marked slot marks its jump's end (only chain slots are ever
+  // marked). Done when J[head] passes the end. J and Jn hold S + 1
+  // entries, the last S.
+  if (!all_next && head < S) {
+    if (lane == 0) kept[head] = 1;
+    unsigned short *J = nxt, *Jn = jmp;
+    __syncwarp();
+    while (J[head] < S) {
+      for (int base = 0; base < S; base += T) {
+        int j[NC];
+        uint8_t marked[NC];
+        unsigned short jj[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int pc = min(base + 32 * c + lane, S);
+          j[c] = J[pc];
+          marked[c] = kept[pc];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) jj[c] = J[j[c]];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int p = base + 32 * c + lane;
+          if ((p < S) & (j[c] < S) & (marked[c] != 0)) kept[j[c]] = 1;
+          if (p < S) Jn[p] = jj[c];
+        }
+      }
+      unsigned short *t = J;
+      J = Jn;
+      Jn = t;
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+
+  // 6. the compaction: the stable order of (kept ? z : kInvalidZ), so the
+  // kept slots below kInvalidZ, then every slot at kInvalidZ (the dropped
+  // ones), then kept slots above it, each group in merge order
+  int g[NC];
+  bool k_[NC];
+  unsigned short e_[NC];
+  float z_[NC];
+  unsigned b[NC][3];
+  auto classify = [&](int base) {
+    uint8_t f[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int pc = min(base + 32 * c + lane, S - 1);
+      e_[c] = msrc[pc];
+      z_[c] = mz[pc];
+      f[c] = kept[pc];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = base + 32 * c + lane;
+      k_[c] = all_next ? (p < nn) & ((e_[c] & kValid) != 0) : f[c] != 0;
+      g[c] = p >= S ? 3 : (k_[c] && z_[c] < kInvalidZ ? 0 : (k_[c] && z_[c] > kInvalidZ ? 2 : 1));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) b[c][k] = __ballot_sync(kAll, g[c] == k);
+    }
+  };
+  int n0 = 0, n1 = 0;
+  for (int base = 0; base < S; base += T) {
+    classify(base);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      n0 += __popc(b[c][0]);
+      n1 += __popc(b[c][1]);
+    }
+  }
+  int at[3] = {0, n0, n0 + n1};
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < S; base += T) {
+    if (!one_tile) classify(base);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int gc = min(g[c], 2);
+      const int q = at[gc] + __popc(b[c][gc] & below);
+      if (g[c] < 3) {
+        oz[q] = k_[c] ? z_[c] : kInvalidZ;
+        osrc[q] = (unsigned short)((e_[c] & kSource) | (k_[c] ? kKept : 0));
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) at[k] += __popc(b[c][k]);
+    }
+  }
+  __syncwarp();
+
+  // 7. the outputs, coalesced: z, the mask, dt as update_dt gives it (from
+  // the next slot, the last kept one's from t_far) and the values, a lane a
+  // float of the row's S x C
+  for (int base = 0; base < S; base += T) {
+    unsigned short o[NC], on[NC];
+    float z[NC], zn[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int q = base + 32 * c + lane, qc = min(q, S - 1), qn = min(q + 1, S - 1);
+      o[c] = osrc[qc];
+      on[c] = osrc[qn];
+      z[c] = oz[qc];
+      zn[c] = oz[qn];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int q = base + 32 * c + lane;
+      const bool is_kept = (o[c] & kKept) != 0;
+      const bool next_kept = (q + 1 < S) & ((on[c] & kKept) != 0);
+      if (q < S) {
+        z_out[q] = z[c];
+        mask_out[q] = is_kept ? 1 : 0;
+        dt_out[q] = is_kept ? clamp_dt((next_kept ? zn[c] : tf) - z[c], mdt) : 0.0f;
+      }
+    }
+  }
+  if (C == 0) return;
+  if (staged) {
+    __pipeline_wait_prior(0);
+    __syncwarp();
+  }
+  // element e = q C + cc of the row's values, advanced by 32 a chunk
+  int q = lane / C, cc = lane - (lane / C) * C;
+  const int dq = 32 / C, dc = 32 - (32 / C) * C;
+  for (int base = 0; base < S * C; base += kTile) {
+    int at[kChunks];
+    float v[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      at[c] = (osrc[min(q, S - 1)] & kSource) * C + cc;
+      cc += dc;
+      q += dq;
+      if (cc >= C) {
+        cc -= C;
+        ++q;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e = base + 32 * c + lane;
+      v[c] = staged ? sv[min(at[c], S * C - 1)]
+                    : (e < S * C ? (at[c] < Sa * C ? va[at[c]] : vb[at[c] - Sa * C]) : 0.0f);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e = base + 32 * c + lane;
+      if (e < S * C) v_out[e] = v[c];
+    }
+  }
+}
+
+}  // namespace
+
+// one kernel a tile width NC (1-4 chunks of 32 slots); the launcher takes
+// the narrowest tile that holds the row
+#define COMBINE_SAMPLES_KERNEL(name, NC)                                                  \
+  extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) name(                      \
+      const float *__restrict__ za, const uint8_t *__restrict__ ma,                            \
+      const float *__restrict__ zb, const uint8_t *__restrict__ mb,                            \
+      const float *__restrict__ va, const float *__restrict__ vb,                              \
+      const float *__restrict__ t_far, const float *__restrict__ max_dt_a,                     \
+      const float *__restrict__ max_dt_b, float min_dist, float *__restrict__ z_out,           \
+      uint8_t *__restrict__ mask_out, float *__restrict__ dt_out, float *__restrict__ v_out,   \
+      float *__restrict__ max_dt_out, int Sa, int Sb, int C, int staged, long long R) {        \
+    extern __shared__ __align__(16) unsigned char combine_smem[];                              \
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;                                \
+    const long long r = (long long)blockIdx.x * (blockDim.x >> 5) + warp;                      \
+    if (r >= R) return; /* the whole warp; no block barrier below */                           \
+    const int S = Sa + Sb;                                                                     \
+    const float mdt = fmaxf(max_dt_a[r], max_dt_b[r]);                                         \
+    combine_ray<NC>(za + r * Sa, ma + r * Sa, zb + r * Sb, mb + r * Sb,                  \
+                          C ? va + r * Sa * C : va, C ? vb + r * Sb * C : vb, t_far[r], mdt,   \
+                          min_dist, z_out + r * S, mask_out + r * S, dt_out + r * S,           \
+                          C ? v_out + r * S * C : v_out, Sa, Sb, C, staged != 0,               \
+                          combine_smem + warp * combine_warp_bytes(S, staged ? S * C : 0),    \
+                          lane);                                                               \
+    if (lane == 0) max_dt_out[r] = mdt;                                                        \
+  }
+
+COMBINE_SAMPLES_KERNEL(combine_samples_c1_kernel, 1)
+COMBINE_SAMPLES_KERNEL(combine_samples_c2_kernel, 2)
+COMBINE_SAMPLES_KERNEL(combine_samples_c3_kernel, 3)
+COMBINE_SAMPLES_KERNEL(combine_samples_c4_kernel, 4)
 
 extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) neus_transmittance_forward_kernel(
     const float *__restrict__ alpha, const uint8_t *__restrict__ mask, float *__restrict__ w,
@@ -571,21 +975,38 @@ extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) neus_importanc
   }
 }
 
+// A warp a ray, kWarpsPerBlock rays a block while their shared memory fits
+// the static 48 KB, fewer for long rows; one ray's row past 48 KB (S > 3,400
+// slots) raises the kernel's limit.
 extern "C" int vs_combine_samples(const void *za, const void *ma, const void *zb, const void *mb,
                                   const void *va, const void *vb, const void *t_far,
                                   const void *max_dt_a, const void *max_dt_b, float min_dist,
                                   void *z, void *mask, void *dt, void *v, void *max_dt, int Sa,
                                   int Sb, int C, long long R, void *stream) {
+  typedef void (*Kernel)(const float *, const uint8_t *, const float *, const uint8_t *,
+                         const float *, const float *, const float *, const float *,
+                         const float *, float, float *, uint8_t *, float *, float *, float *, int,
+                         int, int, int, long long);
+  static const Kernel kernels[4] = {combine_samples_c1_kernel, combine_samples_c2_kernel,
+                                     combine_samples_c3_kernel, combine_samples_c4_kernel};
+  static size_t allowed[4] = {};
   if (R > 0) {
     const int S = Sa + Sb;
-    const int nt = threads_for(S, sizeof(float) + sizeof(unsigned short));
-    const size_t smem = (size_t)nt * S * (sizeof(float) + sizeof(unsigned short));
-    const unsigned blocks = (unsigned)((R + nt - 1) / nt);
-    combine_samples_kernel<<<blocks, nt, smem, (cudaStream_t)stream>>>(
+    const int nc = S <= 32 ? 1 : S <= 64 ? 2 : S <= 96 ? 3 : 4;
+    const Kernel kernel = kernels[nc - 1];
+    const int staged = C > 0 && (long long)S * C <= kStagedValues;
+    const size_t per_warp = combine_warp_bytes(S, staged ? S * C : 0);
+    int warps = kWarpsPerBlock;
+    while (warps > 1 && warps * per_warp > kSmemLimit) warps >>= 1;
+    const size_t smem = warps * per_warp;
+    const cudaError_t err = allow_smem((const void *)kernel, smem, allowed[nc - 1]);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)((R + warps - 1) / warps);
+    kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
         (const float *)za, (const uint8_t *)ma, (const float *)zb, (const uint8_t *)mb,
         (const float *)va, (const float *)vb, (const float *)t_far, (const float *)max_dt_a,
         (const float *)max_dt_b, min_dist, (float *)z, (uint8_t *)mask, (float *)dt,
-        (float *)v, (float *)max_dt, Sa, Sb, C, R);
+        (float *)v, (float *)max_dt, Sa, Sb, C, staged, R);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 """Times the port's CUDA kernels at the shapes of the volsurfs main path.
 
-    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6] [k8]
+    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6] [k7] [k8]
 
-(all four without arguments):
+(all five without arguments):
 
 - K1 ``scatter_add_rows``: one HashGrid2D backward of the train step (16
   levels x 4 lerp corners x 512 rays x 4 hash corners, F=2, into the
@@ -18,6 +18,11 @@
   differentiable lookup with grads (``permuto_lookup``, the curvature
   term's) at 49,152 samples, forward and backward into the table and the
   points, whatever kernels the tree's backward takes;
+- K7 ``occupancy_samples`` on a refreshed 256^3 grid (``k7_grid``) at the
+  train steps' 512, 2,048 and 4,096 rays (the surf step, the offsets_surfs
+  step, the trainer's largest bucket) and a 16,384-ray render chunk,
+  clipped to the occupied probes, 64 samples a ray (``k7_cases``; 512
+  rays and the chunk are chip_smoke.py's phase 13 inputs);
 - K8 (``csrc/volrender.cu``) at the surf and offsets_surfs data steps'
   shapes (512 rays at K = 1 surface, 2,048 at K = 5; 64 + 16 + 16
   samples; inputs from ``k8_cases``) and the surf eval chunk's (2,048 rays,
@@ -50,6 +55,8 @@ from volsurfs_tpu_torch.datasets.sphere_scene import FRAME, load_shells, test_ca
 
 TRAIN_RAYS = 512  # training_rays_batch_size of config/volsurfs/base_5.cfg
 CHUNK = 16384  # rays of one render chunk
+# K7's train-step rays: surf's step, offsets_surfs' step, the largest bucket
+K7_TRAIN_RAYS = (512, 2048, 4096)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -257,6 +264,46 @@ def k6_inputs(device, n, seed=0):
     return enc, unit.contiguous(), rng
 
 
+def k7_grid(device, res=256):
+    """A 256^3 grid after a refresh at the surf stage's start: |sdf| of a
+    sphere of radius 0.5 at the voxel centres, occupancy from the logistic
+    density at the first phase's beta (variance 0.3)."""
+    from volsurfs_tpu_torch.ops.occupancy import make_grid
+    from volsurfs_tpu_torch.utils.schedules import get_logistic_beta_from_variance
+
+    grid = make_grid(res, 2.0, sphere_roi_radius=1.0, device=device)
+    values = torch.abs(torch.linalg.norm(grid.voxel_centers(), dim=-1) - 0.5)
+    grid = grid.update_values(values)
+    return grid.update_occupancy_with_sdf(float(get_logistic_beta_from_variance(0.3)))
+
+
+def k7_cases(device, reel, grid, seed=0, train_rays=(TRAIN_RAYS,)):
+    """{shape: the arguments of occupancy_samples} on grid: a train step's
+    rays (each count of train_rays) drawn from reel (a tensor reel of the
+    training split) and a 16,384-ray render chunk of the test camera, each
+    in the bounding sphere's [t_near, t_far], clipped to the occupied
+    probes as base.cfg samples (512 probe and march steps, 64 samples a
+    ray)."""
+    from volsurfs_tpu_torch.datasets.tensor_reel import get_next_rays_batch
+    from volsurfs_tpu_torch.ops.raycast import intersect_bounding_primitive, make_bounding_sphere
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rays = {}
+    for n in train_rays:
+        batch = get_next_rays_batch(reel, gen, n, jitter_pixels=True)
+        rays[f"train_{n}"] = (batch["rays_o"], batch["rays_d"])
+    rays_o, rays_d, _ = test_camera(device)
+    rays[f"chunk_{CHUNK}"] = (rays_o[CHUNK:2 * CHUNK].contiguous(),
+                              rays_d[CHUNK:2 * CHUNK].contiguous())
+    cases = {}
+    for shape, (o, d) in rays.items():
+        rc = intersect_bounding_primitive(make_bounding_sphere(1.0), o, d)
+        jitter = torch.rand(o.shape[0], 1, generator=gen, device=device)
+        cases[shape] = (o, d, rc["t_near"].contiguous(), rc["t_far"].contiguous(), grid, jitter,
+                        1e-4, 3, 64, 512, 512)
+    return cases
+
+
 # the surf and offsets_surfs data steps' samples: 64 a ray in the occupied
 # space and two rounds of 16 importance samples (config/surf/base.cfg,
 # config/offsets_surfs/base_5.cfg)
@@ -443,11 +490,12 @@ def main(argv=None):
 
     from volsurfs_tpu_torch.datasets.tensor_reel import make_tensor_reel
     from volsurfs_tpu_torch.ops import bvh as B
+    from volsurfs_tpu_torch.ops import samplers as SP
     from volsurfs_tpu_torch.ops import scatter_add as S
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA card")
-    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6", "k8"}
+    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6", "k7", "k8"}
     device = torch.device("cuda")
     smi = card()
     print(smi, flush=True)
@@ -455,15 +503,20 @@ def main(argv=None):
         for case, (rows, upd, nr_rows) in k1_cases(device).items():
             _bench_line("k1_scatter_add", lambda: S.scatter_add_rows(rows, upd, nr_rows), smi,
                         case=case)
+    reel = make_tensor_reel(*train_split(), device=device)
     if "k2" in which:
         stacked = B.stack_bvhs([B.build_bvh(v, f) for v, f, _ in load_shells()], device)
-        reel = make_tensor_reel(*train_split(), device=device)
         for shape, (rays_o, rays_d) in k2_rays(device, reel).items():
             _bench_line("k2_bvh_trace", lambda: B.trace_all(stacked, rays_o, rays_d), smi,
                         shape=shape)
         stacked.check_step_cap()
     if "k6" in which:
         bench_k6(device, smi)
+    if "k7" in which:
+        cases = k7_cases(device, reel, k7_grid(device), train_rays=K7_TRAIN_RAYS)
+        for shape, args in cases.items():
+            _bench_line("k7_occupancy_samples", lambda: SP.occupancy_samples(*args), smi,
+                        shape=shape)
     if "k8" in which:
         bench_k8(device, smi)
 

@@ -3,12 +3,14 @@ occupancy grid (counterpart of volsurfs_tpu/ops/samplers.py:1-245; the
 background samplers wait for ROADMAP.md Queue 1 item 5's trained
 background).
 
-The occupied-space sampler is kernel K7 (``csrc/occupancy_sampler.cu``, one
-warp a ray) on a CUDA tensor and the plain version
-``occupancy_samples_reference`` on a CPU tensor. Both clip the ray to its
-first and last occupied probe of ``nr_probe_steps`` (optional), march
-``nr_march_steps`` steps, measure the occupied arc length and place up to S
-samples evenly along it from a jittered start.
+The occupied-space sampler is kernel K7 (``csrc/occupancy_sampler.cu``:
+each pass's grid reads in flight together; on grids whose extents are
+powers of two four warps a ray below 2,048 rays and a warp a ray from
+there on, on other grids four warps a ray) on a CUDA tensor and the plain
+version ``occupancy_samples_reference`` on a CPU tensor. Both clip the ray
+to its first and last occupied probe of ``nr_probe_steps`` (optional),
+march ``nr_march_steps`` steps, measure the occupied arc length and place
+up to S samples evenly along it from a jittered start.
 
 The occupied arc after step k is (occupied steps up to k) * step length,
 one product of an exact count; JAX sums the step lengths as a tree
@@ -149,7 +151,7 @@ def occupancy_samples(rays_o, rays_d, t_near, t_far, grid, jitter, min_dist_betw
                            ("jitter", jitter, (R, 1))):
         _build.check_tensor(name, t, torch.float32, shape, dev)
     _build.check_tensor("grid.occupied", grid.occupied, torch.uint8, (grid.res,) * 3, dev)
-    # the march's counts take 2 B a step of shared memory, 8 rays a block
+    # the march's counts take 2 B a step of shared memory, 1 or 4 rays a block
     if nr_march_steps % 32 or nr_probe_steps % 32 or not 0 < nr_march_steps <= 2048:
         raise ValueError(f"occupancy_samples: step counts must be multiples of 32, the march "
                          f"at most 2048 (got {nr_march_steps}, {nr_probe_steps})")

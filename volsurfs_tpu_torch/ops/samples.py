@@ -5,8 +5,10 @@ A batch of R rays holds up to S samples each as [R, S] tensors: depths
 a row form a prefix sorted by depth; invalid slots hold ``INVALID_Z``.
 
 ``combine`` (the merge of two sample sets) is kernel K8a
-(``csrc/volrender.cu``, a thread a ray) on a CUDA tensor and the plain
-version ``combine_reference`` on a CPU tensor.
+(``csrc/volrender.cu``, a warp a ray: a merge by ranks, the keep-chain by
+successors and pointer doubling) on a CUDA tensor and the plain version
+``combine_reference`` on a CPU tensor; the two agree bit for bit on any
+row, sorted or not.
 """
 
 from __future__ import annotations
