@@ -7,11 +7,14 @@ Drives the port's volsurfs slice at the width of config/volsurfs/base_5.cfg
 on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/,
 then its surf stage at the width of config/surf/base.cfg, then its
 offsets_surfs stage at the width of config/offsets_surfs/base_5.cfg from
-the surf stage's SDF:
+the surf stage's SDF, then the pipeline's mesh baking and volsurfs stage
+on the shells of that offsets_surfs model:
 
-1. the card's name and power limit;
-2. builds the CUDA kernels (one nvcc per csrc/*.cu source, in parallel) and
-   the native BVH builder (g++) into volsurfs_tpu_torch/_build/, with each
+1. the card's name and power limit (and scipy's version: the pipeline's UV
+   atlas needs it, and without it this phase raises);
+2. builds the CUDA kernels (one nvcc per csrc/*.cu source, in parallel),
+   the native BVH builder and mesh simplifier (g++) into
+   volsurfs_tpu_torch/_build/, with each
    kernel's registers and spills as ptxas reports them;
 3. kernel K1 (table-gradient scatter-add) against its plain version at the
    train step's shape and at a collision-heavy one, with times;
@@ -79,7 +82,8 @@ the surf stage's SDF:
    fused backward replaced) beside index_add_;
 13. kernel K7 (the occupied-space sampler, csrc/occupancy_sampler.cu)
    against its plain version on a refreshed 256^3 grid at the train
-   step's 512 rays and a 16,384-ray render chunk, bit for bit, with times
+   step's 512 rays, the offsets_surfs buckets' 2,048 and 4,096 and a
+   16,384-ray render chunk, bit for bit, with times
    and the bound (the distinct voxels the rays read, and the operations
    of their points, K7_OPS_A_POINT, at the card's issue rate);
 14. the surf stage: config/surf/base.cfg at full width through
@@ -101,10 +105,12 @@ the surf stage's SDF:
    had fallen below the bar, and the runs whose occupancy grid dipped to
    ~2% scored lowest; at 1/25 the median rose to ~17.9 dB, but one run in
    15 still fell below the bar after its grid collapsed; chip_stage_runs.py
-   repeats the stage) to 80 offsets-init, 40 color-init, 1,680 first-phase
-   and 200 second-phase steps (the cuts in the
-   ``offsets_setup`` line): the median step of each phase, the
-   offsets-init loss (it must fall), the occupancy refreshes;
+   repeats the stage), but for the offsets-init phase, cut to
+   OFFSETS_INIT_STEPS (the later phases' ends move by the difference): 400
+   offsets-init, 40 color-init, 1,680 first-phase and 200 second-phase
+   steps (the cuts in the ``offsets_setup`` line): the median step of
+   each phase, the offsets-init loss (it must fall), the occupancy
+   refreshes;
 17. the rest of that stage: the checkpoint loaded into a fresh
    OffsetsSurfs, whose render of test camera 0 (rgb and every surface's
    opacity) must equal the trained one's bit for bit; eval_split of the
@@ -122,12 +128,31 @@ the surf stage's SDF:
    bit for bit at a step's three merges, the scan's outputs and gradient
    and both importance rounds' depths (64 and 80 samples) within stated
    tolerances; times, bounds, registers, and torch.cumprod beside the
-   scan.
+   scan;
+19. the device marching (volsurfs_tpu_torch/baking/marching.py) against
+   the same function on the host: the main surface of phase 16's trained
+   model on a 128^3 grid, the same values marched on the card and on the
+   CPU: faces equal, vertices within 1e-6;
+20. the pipeline's stages 3-5 from phase 16's trained model (the main path
+   pipeline_stage): its 5 shells extracted on the card at 128^3 (the
+   baker's 256^3 cut: see EXTRACTION_RES)
+   (baker.extract_meshes_from_offsets_surfs: one field evaluation, K6
+   without grads, then a march a surface), simplified at 0.025 and
+   atlased on the host; the volsurfs stage at config/volsurfs/base_5.cfg's
+   width on those shells through Trainer.train (60 steps, as phase 5);
+   eval_split of the test split (psnr > 14 dB); the textures and
+   scene.json baked into the run directory, which BakedMeshRenderer
+   renders on the test cameras (psnr against the ground truth > 13 dB;
+   both bars tests/test_pipeline_e2e.py's); every shell with more than 10
+   vertices and faces; the seconds of each step, the shells' raw and
+   simplified sizes, the peak memory and the launches over the path (K6,
+   K1, K2 and K4 each > 0, no plain version).
 
 The main paths, each with the launch counts set to 0 before it and read
 after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
 begins with train_render, from one reset), baked_render (phases 9-10),
-surf_stage (phases 14-15) and offsets_stage (phases 16-17).
+surf_stage (phases 14-15), offsets_stage (phases 16-17) and
+pipeline_stage (phase 20).
 
 Each phase prints one JSON line. The line before the last is the kernel
 table; the last line is {"ok": true, "device": {...}}. Any failure raises
@@ -197,7 +222,29 @@ SURF_PSNR_BAR = 16.0
 # offsets bar (1/25: see phase 16 above)
 OFFSETS_CFG = os.path.join(REPO, "config", "offsets_surfs", "base_5.cfg")
 OFFSETS_SCALE = 1 / 25
+# the offsets-init phase's steps: 1/5 of base_5.cfg's 2,000. At 1/25 (80
+# steps) the eps heads stay far from their targets (0.0017-0.0066 from the
+# main surface): the inner surfaces were still 0.17-0.86 inside it at step
+# 1,600 of a stage run and left the extraction grid, so the pipeline path's
+# shells 0-3 came out empty
+OFFSETS_INIT_STEPS = 400
 OFFSETS_PSNR_BAR = 13.0
+# whether the offsets_surfs path clips its rays to the occupied space:
+# base_5.cfg's clip_rays_to_occupancy (on); chip_stage_runs.py runs either
+# setting
+OFFSETS_CLIP_TO_OCCUPANCY = True
+# the pipeline path (phases 19-20): the shells' extraction grid (cut from
+# the baker's 256) and simplification (the baker's), the device marching's
+# check grid, and tests/test_pipeline_e2e.py's bars
+# (128: at 256^3 the noisy SDF of the cut stages gave 1.88M raw faces a
+# shell and 51 s of simplifying and atlasing for one shell on the card's
+# host; at 192^3, 0.57-1.31M faces a shell and 111.5 s for five, past the
+# path's 90 s; at 128^3 the path takes ~82 s)
+EXTRACTION_RES = 128
+SIMPLIFY_RATIO = 0.025
+MARCHING_CHECK_RES = 128
+PIPELINE_VOLSURFS_PSNR_BAR = 14.0
+PIPELINE_BAKED_PSNR_BAR = 13.0
 CHUNK_SURF = 16384  # rays of a render chunk (base.cfg's test_rays_batch_size)
 PROFILED_STEPS = 3
 # the sphere scene as the stage trains on it: 24 train and 4 test cameras
@@ -281,8 +328,10 @@ def phase_device():
     smi = card()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
+    import scipy  # the pipeline path's UV atlas needs it: without it this raises
+
     emit("device", nvidia_smi=smi, torch_name=name, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, scipy=scipy.__version__)
     return name, smi
 
 
@@ -294,6 +343,7 @@ def phase_build():
     t_nvcc = time.perf_counter() - t
     t = time.perf_counter()
     _build.bvh_builder()
+    _build.mesh_simplifier()
     resources = _build.kernel_resources()
     sass = {name: {key: n for key, n in counts.items() if key != "by_opcode"}
             for name, counts in _build.sass_counts().items()}
@@ -425,8 +475,9 @@ def smoke_hyper_params():
     return hp
 
 
-def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS):
-    """steps train steps through Trainer.train; returns the trainer."""
+def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS, prefix=""):
+    """steps train steps through Trainer.train; returns the trainer. Its
+    lines' phases begin with prefix."""
     from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
     from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
     from volsurfs_tpu_torch.params.params import TrainParams
@@ -441,14 +492,16 @@ def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS):
                       train_params=TrainParams("volsurfs", TRAIN_CFG),
                       callbacks=CB.CallbacksGroup([timer]))
     n_params = sum(p.numel() for p in method.models.parameters())
-    emit("train_setup", setup_s=time.perf_counter() - t, textures=len(method.models) * (hp.sh_degree + 1),
+    emit(prefix + "train_setup", setup_s=time.perf_counter() - t,
+         textures=len(method.models) * (hp.sh_degree + 1),
          params=n_params, rays_per_step=hp.training_rays_batch_size,
          warmup=hp.nr_warmup_iters, milestones=hp.lr_milestones, lr=hp.lr)
 
     def log(it, _, losses):
         if it % 10 == 0:  # the timer has synchronised: reading the loss costs no wait
             recent = timer.losses()[-10:]
-            emit("train", step=it, loss=float(losses["loss"]), mean_loss_last_10=float(recent.mean()))
+            emit(prefix + "train", step=it, loss=float(losses["loss"]),
+                 mean_loss_last_10=float(recent.mean()))
 
     t = time.perf_counter()
     trainer.train(end_iter=steps, callback=log)
@@ -457,7 +510,7 @@ def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS):
     if not np.isfinite(losses).all():
         raise AssertionError(f"train: losses {losses.tolist()}")
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    emit("train_done", losses=losses.tolist(), mean_first_10=first, mean_last_10=last,
+    emit(prefix + "train_done", losses=losses.tolist(), mean_first_10=first, mean_last_10=last,
          median_step_ms=timer.median_ms(WARMUP_STEPS), steps_timed=len(timer.step_ms) - WARMUP_STEPS,
          train_s=train_s, iter_nr=method.iter_nr,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None)
@@ -956,9 +1009,10 @@ def _voxels_read(grid, rays_o, rays_d, spans, nr_steps=512):
 
 
 def phase_occupancy_sampler(device, reel):
-    """K7 against its plain version on a refreshed 256^3 grid: the train
-    step's 512 rays (drawn from the train reel) and a 16,384-ray render
-    chunk of the test camera, clipped to the occupied probes as base.cfg
+    """K7 against its plain version on a refreshed 256^3 grid: a train
+    step's 512 rays (drawn from the train reel), the 2,048 and 4,096 of the
+    offsets_surfs steps' buckets, and a 16,384-ray render chunk of the test
+    camera, clipped to the occupied probes as base.cfg
     samples (64 a ray; kernel_bench.k7_cases): z, mask, the clipped
     interval and the spacing bit for bit. The bound: the distinct voxels
     read and the rays' bytes, and the operations of the points of both
@@ -968,7 +1022,8 @@ def phase_occupancy_sampler(device, reel):
     from volsurfs_tpu_torch.ops import samplers as SP
 
     results = {}
-    for shape, args in kb.k7_cases(device, reel, kb.k7_grid(device)).items():
+    cases = kb.k7_cases(device, reel, kb.k7_grid(device), train_rays=kb.K7_TRAIN_RAYS)
+    for shape, args in cases.items():
         o, d, tn, tf, grid = args[:5]
         got, ref = SP.occupancy_samples(*args), SP.occupancy_samples_reference(*args)
         differ = {name: int((a != b).sum()) for name, a, b in
@@ -1239,20 +1294,27 @@ def phase_volrender(device, resources, cases):
 
 def offsets_hyper_params():
     """config/offsets_surfs/base_5.cfg at its full width, its schedule cut by
-    one factor (OFFSETS_SCALE): the phases' ends (2000, 3000, 45000), the
-    warmup (1000), the milestones (40000, 45000, 47500) and the run
-    (50000). Returns (hp, the cuts)."""
+    one factor (OFFSETS_SCALE) but for the offsets-init phase
+    (OFFSETS_INIT_STEPS): the phases' ends (2000, 3000, 45000), the warmup
+    (1000), the milestones (40000, 45000, 47500) and the run (50000), each
+    end after the offsets-init phase's moved by the steps that phase gained
+    over the cut. Returns (hp, the cuts)."""
     from volsurfs_tpu_torch.params.hyper_params import get_method_hyper_params
 
     hp = get_method_hyper_params("offsets_surfs", OFFSETS_CFG)
+    shift = OFFSETS_INIT_STEPS - round(hp.init_phase_end_iter * OFFSETS_SCALE)
     cuts = {}
     for name in ("init_phase_end_iter", "color_init_phase_end_iter", "first_phase_end_iter",
                  "nr_warmup_iters", "training_end_iter"):
-        cuts[name] = [getattr(hp, name), round(getattr(hp, name) * OFFSETS_SCALE)]
+        moved = 0 if name == "nr_warmup_iters" else shift
+        cuts[name] = [getattr(hp, name), round(getattr(hp, name) * OFFSETS_SCALE) + moved]
         setattr(hp, name, cuts[name][1])
     cuts["lr_milestones"] = [list(hp.lr_milestones),
-                             [round(m * OFFSETS_SCALE) for m in hp.lr_milestones]]
+                             [round(m * OFFSETS_SCALE) + shift for m in hp.lr_milestones]]
     hp.lr_milestones = cuts["lr_milestones"][1]
+    if hp.clip_rays_to_occupancy != OFFSETS_CLIP_TO_OCCUPANCY:
+        cuts["clip_rays_to_occupancy"] = [hp.clip_rays_to_occupancy, OFFSETS_CLIP_TO_OCCUPANCY]
+        hp.clip_rays_to_occupancy = OFFSETS_CLIP_TO_OCCUPANCY
     return hp, cuts
 
 
@@ -1303,6 +1365,7 @@ def phase_offsets_train(device, mv, run_dir, sdf_state):
                         (i for i in range(hp.training_end_iter + 1)
                          if method._variance(i) >= np.float32(0.8)), None))
     emit("offsets_setup", setup_s=time.perf_counter() - t, cuts=cuts, scale=OFFSETS_SCALE,
+         offsets_init_steps=OFFSETS_INIT_STEPS,
          variance_schedule=variance, surfaces=method.nr_surfs,
          main_surf_idx=method.main_surf_idx, delta_surfs=method.delta_surfs,
          params={k: sum(p.numel() for p in m.parameters()) for k, m in method.models.items()},
@@ -1331,7 +1394,10 @@ def phase_offsets_train(device, mv, run_dir, sdf_state):
                               mean_last_5=float(losses[idx[-5:]].mean()),
                               rgb_mean_last_5=float(np.mean(np.asarray(rgb)[idx[-5:]])),
                               median_step_ms=float(np.median(step_ms[timed])))
+    # the largest fall of the occupied share from one refresh to the next
+    falls = [(b[1] / a[1], a[0], b[0]) for a, b in zip(refreshes, refreshes[1:]) if a[1] > 0]
     result = dict(steps=len(losses), train_s=train_s, phases=by_phase, refreshes=refreshes,
+                  largest_refresh_fall=min(falls, default=None),
                   rays_bucket_by_step=buckets[::25],
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit("offsets_train", **result)
@@ -1389,7 +1455,8 @@ def phase_offsets_stage(device, trainer, chunk):
 
 def phase_offsets(device, mv, sdf_state):
     """The main path offsets_stage (phases 16-17), with the counts reset.
-    Returns (its launches, the rays of its last step)."""
+    Returns (its launches, the rays of its last step, the trained
+    method)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     run_tmp = tempfile.TemporaryDirectory(prefix="vs_offsets_run_")
@@ -1398,11 +1465,112 @@ def phase_offsets(device, mv, sdf_state):
     phase_offsets_stage(device, trainer, CHUNK_SURF)
     counts = read_counts()
     emit("offsets_stage_launches", **counts)
-    rays = trainer._rays_bucket
+    rays, method = trainer._rays_bucket, trainer.method
     del trainer
     run_tmp.cleanup()
     torch.cuda.empty_cache()
-    return counts, rays
+    return counts, rays, method
+
+
+def phase_marching(offsets):
+    """The device marching against the CPU marching (phase 19): the main
+    surface of the trained offsets_surfs model on a MARCHING_CHECK_RES^3
+    grid, the same values marched on the card and on the host: faces
+    equal, vertices within 1e-6."""
+    from volsurfs_tpu_torch.baking.marching import (
+        evaluate_grid,
+        grid_origin_spacing,
+        marching_tetrahedra,
+    )
+
+    res, bounds = MARCHING_CHECK_RES, float(offsets.radius)
+    values = evaluate_grid(lambda p: offsets._sdfs(p, offsets.iter_nr)[0][..., 0], res, bounds,
+                           device=offsets.device)[..., offsets.main_surf_idx].contiguous()
+    origin, spacing = grid_origin_spacing(res, bounds)
+    sync(offsets.device)
+    t = time.perf_counter()
+    dv, df = marching_tetrahedra(values, origin, spacing)
+    device_s = time.perf_counter() - t
+    t = time.perf_counter()
+    hv, hf = marching_tetrahedra(values.cpu(), origin, spacing)
+    host_s = time.perf_counter() - t
+    result = dict(res=res, verts=len(dv), faces=len(df), faces_equal=bool(np.array_equal(df, hf)),
+                  max_abs_vert_err=float(np.abs(dv - hv).max()) if len(dv) == len(hv) and len(dv)
+                  else None, device_s=device_s, host_s=host_s, tolerance=1e-6)
+    emit("pipeline_marching_check", **result)
+    if not (result["faces_equal"] and len(df) > 0 and result["max_abs_vert_err"] <= 1e-6):
+        raise AssertionError(f"the device marching differs from the host's: {result}")
+    return result
+
+
+def phase_pipeline(device, offsets, mv, chunk):
+    """The main path pipeline_stage (phase 20): the pipeline's stages 3-5
+    from the trained offsets_surfs model of phase 16: its shells extracted
+    on the card at EXTRACTION_RES^3, simplified at SIMPLIFY_RATIO and
+    atlased; the volsurfs stage at base_5.cfg's width on them through
+    Trainer.train (TRAIN_STEPS steps, the train path's cut); eval_split;
+    the textures and scene.json baked into the run directory; the run
+    directory rendered through BakedMeshRenderer on the test cameras.
+    Returns its launches."""
+    from volsurfs_tpu_torch.baking import baker
+    from volsurfs_tpu_torch.renderers.mesh_renderer import BakedMeshRenderer
+    from volsurfs_tpu_torch.utils.evaluation import psnr
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_pipeline_run_")
+    run_dir = run_tmp.name
+    seconds = {}
+    t0 = time.perf_counter()
+    reset_counts()  # the main path pipeline_stage: extract, simplify, train, evaluate, bake
+    t = time.perf_counter()
+    raw = baker.extract_meshes_from_offsets_surfs(offsets, resolution=EXTRACTION_RES)
+    seconds["extract"] = time.perf_counter() - t
+    t = time.perf_counter()
+    shells = baker.simplify_and_atlas(raw, SIMPLIFY_RATIO)
+    seconds["simplify_and_atlas"] = time.perf_counter() - t
+    baker.save_meshes(run_dir, shells)
+    meshes = dict(raw=[[len(v), len(f)] for v, f in raw],
+                  simplified=[[len(v), len(f)] for v, f, _ in shells])
+    emit("pipeline_meshes", cuts={"extraction_res": [256, EXTRACTION_RES]},
+         extraction_res=EXTRACTION_RES, simplify_ratio=SIMPLIFY_RATIO,
+         seconds=dict(seconds), **meshes)
+    if len(shells) != offsets.nr_surfs or min(min(vf) for vf in meshes["simplified"]) <= 10:
+        raise AssertionError(f"pipeline: a shell is empty or degenerate: {meshes}")
+
+    hp = smoke_hyper_params()
+    t = time.perf_counter()
+    trainer = phase_train(device, shells, mv, hp, run_dir, prefix="pipeline_")
+    seconds["volsurfs_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    means = trainer.eval_split("test", chunk_size=chunk)
+    seconds["eval"] = time.perf_counter() - t
+    t = time.perf_counter()
+    meshes_info = baker.bake_textures(trainer.method, run_dir)
+    baker.export_scene_json(run_dir, meshes_info, mv, bg_color="white", sh_degree=hp.sh_degree)
+    seconds["bake"] = time.perf_counter() - t
+    t = time.perf_counter()
+    renderer = BakedMeshRenderer(run_dir, device=device)
+    test = mv["test"]
+    baked = [renderer.render(cam) for cam in test.cameras]
+    seconds["baked_render"] = time.perf_counter() - t
+    baked_psnr = [psnr(test.rgbs[i], img) for i, img in enumerate(baked)]
+    counts = read_counts()
+    seconds["path"] = time.perf_counter() - t0
+    result = dict(shells=len(shells), volsurfs_psnr=means["psnr"], volsurfs_eval=means,
+                  volsurfs_bar=PIPELINE_VOLSURFS_PSNR_BAR, baked_psnr=baked_psnr,
+                  baked_mean_psnr=float(np.mean(baked_psnr)), baked_bar=PIPELINE_BAKED_PSNR_BAR,
+                  finite=bool(all(np.isfinite(img).all() for img in baked)), seconds=seconds,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("pipeline_stage", **result)
+    emit("pipeline_stage_launches", **counts)
+    del trainer, renderer
+    run_tmp.cleanup()
+    torch.cuda.empty_cache()
+    if not (result["finite"] and means["psnr"] > PIPELINE_VOLSURFS_PSNR_BAR
+            and result["baked_mean_psnr"] > PIPELINE_BAKED_PSNR_BAR):
+        raise AssertionError(f"pipeline: below its bars: {result}")
+    return counts
 
 
 def main():
@@ -1445,10 +1613,13 @@ def main():
 
     k4, baked = phase_baked(device, smi, sass)
     k6, k7, surf, sdf_state, surf_rays = phase_surf(device, reel, mv, resources)
-    offsets, offsets_rays = phase_offsets(device, mv, sdf_state)
+    offsets, offsets_rays, offsets_method = phase_offsets(device, mv, sdf_state)
     k8 = phase_volrender(device, resources, {"surf_step": (1, surf_rays),
                                              "offsets_step": (5, offsets_rays),
                                              "surf_eval_chunk": (1, kb.K8_EVAL_RAYS)})
+    phase_marching(offsets_method)
+    pipeline = phase_pipeline(device, offsets_method, mv, kb.CHUNK)
+    del offsets_method
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: over the volsurfs stage (which begins with train_render), the
@@ -1457,34 +1628,46 @@ def main():
     for path, counts_ in (("surf", surf), ("offsets_surfs", offsets)):
         if counts_["scatter_add"] != 0:
             raise AssertionError(f"the {path} stage launched K1 {counts_['scatter_add']} times")
+    # the pipeline path runs K6 (the extraction's field), K1 (the volsurfs
+    # stage's texture backward), K2 and K4 (training, evaluation, the baked
+    # render), and none of their plain versions
+    for count in ("permuto_fwd", "scatter_add", "bvh_trace", "shade"):
+        if pipeline[count] <= 0 or pipeline[count + "_reference"] != 0:
+            raise AssertionError(f"the pipeline path did not run {count} as a kernel: {pipeline}")
     kernels = [
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
              replaces="volsurfs_tpu/ops/pallas/scatter_add.py:107",
-             launches=stage["scatter_add"],
+             launches=stage["scatter_add"] + pipeline["scatter_add"],
              launches_by_path={"train_render": counts["scatter_add"],
-                               "volsurfs_stage": stage["scatter_add"]},
-             plain_launches=stage["scatter_add_reference"] + surf["scatter_add_reference"],
+                               "volsurfs_stage": stage["scatter_add"],
+                               "pipeline_stage": pipeline["scatter_add"]},
+             plain_launches=stage["scatter_add_reference"] + surf["scatter_add_reference"]
+             + pipeline["scatter_add_reference"],
              shape="hashgrid_backward",
              registers=resources.get("scatter_add_rows_f2_kernel", {}).get("registers"),
              **{k: k1[k] for k in keys}),
         dict(name="bvh_trace", route="cuda",
              source="volsurfs_tpu_torch/csrc/bvh_trace.cu",
              replaces="volsurfs_tpu/ops/bvh.py:490",
-             launches=stage["bvh_trace"] + baked["bvh_trace"],
+             launches=stage["bvh_trace"] + baked["bvh_trace"] + pipeline["bvh_trace"],
              launches_by_path={"train_render": counts["bvh_trace"],
                                "volsurfs_stage": stage["bvh_trace"],
-                               "baked_render": baked["bvh_trace"]},
-             plain_launches=stage["bvh_trace_reference"] + baked["bvh_trace_reference"],
+                               "baked_render": baked["bvh_trace"],
+                               "pipeline_stage": pipeline["bvh_trace"]},
+             plain_launches=stage["bvh_trace_reference"] + baked["bvh_trace_reference"]
+             + pipeline["bvh_trace_reference"],
              shape=k2["shape"],
              registers=resources.get("bvh_trace_kernel", {}).get("registers"),
              **{k: k2[k] for k in keys}),
         dict(name="shade_composite", route="cuda",
              source="volsurfs_tpu_torch/csrc/shade.cu",
              replaces="volsurfs_tpu/renderers/mesh_renderer.py:271",
-             launches=stage["shade"] + baked["shade"],
-             launches_by_path={"volsurfs_stage": stage["shade"], "baked_render": baked["shade"]},
-             plain_launches=stage["shade_reference"] + baked["shade_reference"],
+             launches=stage["shade"] + baked["shade"] + pipeline["shade"],
+             launches_by_path={"volsurfs_stage": stage["shade"], "baked_render": baked["shade"],
+                               "pipeline_stage": pipeline["shade"]},
+             plain_launches=stage["shade_reference"] + baked["shade_reference"]
+             + pipeline["shade_reference"],
              shape=k4["shape"],
              registers=resources.get("shade_composite_deg3_kernel", {}).get("registers"),
              sass=k4["sass"], entries_differ=k4["entries_differ"],
@@ -1493,12 +1676,16 @@ def main():
     for kernel, side, fn in (("permuto_forward", "fwd_", "permuto_forward_grads_kernel"),
                              ("permuto_backward", "bwd_", "permuto_backward_grads_points_kernel")):
         count = "permuto_" + side[:-1]
+        # the pipeline path evaluates its field without grads: K6's forward only
+        paths = {"surf_stage": surf, "offsets_stage": offsets}
+        if side == "fwd_":
+            paths["pipeline_stage"] = pipeline
         kernels.append(dict(
             name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/permuto.cu",
             replaces="volsurfs_tpu/models/encodings.py:1039",
-            launches=surf[count] + offsets[count],
-            launches_by_path={"surf_stage": surf[count], "offsets_stage": offsets[count]},
-            plain_launches=surf[count + "_reference"] + offsets[count + "_reference"],
+            launches=sum(c[count] for c in paths.values()),
+            launches_by_path={p: c[count] for p, c in paths.items()},
+            plain_launches=sum(c[count + "_reference"] for c in paths.values()),
             shape="data_step_49152_with_grads_and_points_grad", kernel=fn,
             registers=resources.get(fn, {}).get("registers"),
             entries_differ=k6["entries_differ"],

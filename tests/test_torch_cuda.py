@@ -877,3 +877,52 @@ def test_offsets_surfs_steps_on_the_card(cuda, tmp_path):
                                    "combine_samples", "neus_transmittance_fwd",
                                    "neus_transmittance_bwd", "neus_importance")) > 0, counts
     assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts
+
+
+@pytest.mark.parametrize("kind", ["sphere", "random"])
+def test_device_marching_matches_host_marching(cuda, kind):
+    """marching_tetrahedra on the card against the same values marched on
+    the host: faces equal, vertices within 1e-6 (at 96^3)."""
+    from volsurfs_tpu_torch.baking.marching import marching_tetrahedra
+
+    n = 96
+    rng = np.random.default_rng(0)
+    lin = np.linspace(-1.0, 1.0, n)
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    values = (np.sqrt(x**2 + y**2 + z**2) - 0.6 if kind == "sphere"
+              else rng.standard_normal((n, n, n))).astype(np.float32)
+    origin, spacing = np.full(3, -1.0), np.full(3, 2.0 / (n - 1))
+    dv, df = marching_tetrahedra(torch.from_numpy(values).to(cuda), origin, spacing)
+    hv, hf = marching_tetrahedra(torch.from_numpy(values), origin, spacing)
+    assert len(hf) > 1000
+    np.testing.assert_array_equal(df, hf)
+    np.testing.assert_allclose(dv, hv, rtol=0, atol=1e-6)
+
+
+def test_pipeline_on_the_card(cuda, tmp_path, monkeypatch):
+    """run_pipeline at tests/_pipeline_config.py's sizes on the card: every
+    stage trains, at least two shells and a scene.json, and the path
+    launched K6 (the extraction), K1, K2 and K4, no plain version."""
+    from volsurfs_tpu_torch.methods.offsets_surfs import OffsetsSurfs
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.pipeline import run_pipeline
+
+    from _pipeline_config import DATA, INIT_POINTS, PIPELINE_KWARGS, STEPS, hps
+
+    monkeypatch.setattr(Surf, "nr_sphere_init_points", INIT_POINTS)
+    monkeypatch.setattr(OffsetsSurfs, "nr_offsets_init_points", INIT_POINTS)
+    modules = (P.launches, S.launches, TB.launches, SH.launches)
+    for counts in modules:
+        for key in counts:
+            counts[key] = 0
+    mv = MVDataset("synthetic", "sphere", "", config=DATA)
+    results = run_pipeline(mv, str(tmp_path), *hps(), device=cuda, **PIPELINE_KWARGS)
+    assert results["steps"] == STEPS and len(results["meshes"]) >= 2
+    assert os.path.exists(results["scene_json"])
+    renderer = BakedMeshRenderer(results["volsurfs_dir"], device=cuda)
+    img = renderer.render(mv["test"].cameras[0])
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    counts = {k: v for c in modules for k, v in c.items()}
+    for name in ("permuto_fwd", "scatter_add", "bvh_trace", "shade"):
+        assert counts[name] > 0 and counts[name + "_reference"] == 0, counts

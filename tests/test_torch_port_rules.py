@@ -76,7 +76,9 @@ def test_port_imports_with_jax_blocked():
         "import volsurfs_tpu_torch.models.field_utils, volsurfs_tpu_torch.ops.permuto\n"
         "import volsurfs_tpu_torch.ops.samplers, volsurfs_tpu_torch.ops.volume_rendering\n"
         "import volsurfs_tpu_torch.ops.occupancy, volsurfs_tpu_torch.ops.samples\n"
-        "import volsurfs_tpu_torch.methods.offsets_surfs\n"
+        "import volsurfs_tpu_torch.methods.offsets_surfs, volsurfs_tpu_torch.pipeline\n"
+        "import volsurfs_tpu_torch.baking.marching, volsurfs_tpu_torch.baking.tsdf\n"
+        "import volsurfs_tpu_torch.baking.simplify, volsurfs_tpu_torch.baking.uv_atlas\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -200,6 +202,31 @@ def test_offsets_surfs_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         OffsetsSurfs(HyperParamsOffsetsSuRFs(), make_bounding_sphere(1.0))
+
+
+def test_mesh_stages_and_pipeline_without_device_need_cuda(monkeypatch, tmp_path):
+    """The marching, the TSDF fusion and run_pipeline default to CUDA;
+    without it each raises instead of running on the CPU."""
+    from volsurfs_tpu_torch.baking import marching, tsdf
+    from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsOffsetsSuRFs
+    from volsurfs_tpu_torch.pipeline import run_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    values = np.linspace(-1.0, 1.0, 64, dtype=np.float32).reshape(4, 4, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        marching.marching_tetrahedra(values, np.zeros(3), np.ones(3))
+    with pytest.raises(RuntimeError, match="cuda"):
+        marching.extract_mesh_from_fn(lambda p: p[:, 0], 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tsdf.fuse_depths([], [], resolution=4)
+    mv = MVDataset("synthetic", "sphere", "", config={"width": 8, "height": 8,
+                                                       "nr_train_cameras": 1,
+                                                       "nr_test_cameras": 1})
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pipeline(mv, str(tmp_path), HyperParamsSuRF(), HyperParamsOffsetsSuRFs(),
+                     HyperParamsVolSurfs())
+    assert not os.listdir(tmp_path)
 
 
 def test_cpu_tensors_take_the_plain_volume_rendering_kernels():

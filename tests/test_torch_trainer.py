@@ -229,9 +229,9 @@ def test_entry_points_need_cuda_by_default(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         baker.main(["--method", "volsurfs", "--run_id", "x", "--runs_path", str(tmp_path),
                     "--extract_textures"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        baker.main(["--method", "volsurfs", "--run_id", "x", "--extract_meshes",
-                    "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        baker.main(["--method", "offsets_surfs", "--run_id", "x", "--runs_path", str(tmp_path),
+                    "--extract_meshes", "--simplify_meshes", "--compute_meshes_xatlas"])
 
 
 def test_trainer_and_baker_clis_on_the_cpu(tmp_path):

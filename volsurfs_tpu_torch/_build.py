@@ -10,6 +10,8 @@ All are built into ``volsurfs_tpu_torch/_build/`` (git-ignored):
   ``kernel_resources``.
 - ``libbvh_build.so``: the repository's ``native/bvh_build.cpp`` (binned-SAH
   BVH build), compiled with ``g++``. The source is read in place.
+- ``libmesh_simplify.so``: the repository's ``native/mesh_simplify.cpp``
+  (quadric edge-collapse decimation), the same way.
 
 A library is rebuilt only when the SHA-256 of its sources and flags differs
 from the stamp written beside it. The build writes to a temporary file and
@@ -74,6 +76,9 @@ _KERNEL_SIGNATURES = {
 }
 _BVH_SIGNATURES = {
     "bvh_build_sah": (_I, [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P]),
+}
+_SIMPLIFY_SIGNATURES = {
+    "mesh_simplify": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
 }
 
 _LIBS: dict[str, object] = {}
@@ -196,6 +201,14 @@ def bvh_builder() -> ctypes.CDLL:
     src = os.path.join(_REPO_DIR, "native", "bvh_build.cpp")
     return _cached("bvh_build", lambda: _open(
         _build_all([("libbvh_build.so", ["g++"], GXX_FLAGS, [src])])[0], _BVH_SIGNATURES))
+
+
+def mesh_simplifier() -> ctypes.CDLL:
+    """The native quadric mesh simplifier (built with g++ on first use)."""
+    src = os.path.join(_REPO_DIR, "native", "mesh_simplify.cpp")
+    return _cached("mesh_simplify", lambda: _open(
+        _build_all([("libmesh_simplify.so", ["g++"], GXX_FLAGS, [src])])[0],
+        _SIMPLIFY_SIGNATURES))
 
 
 def kernel_resources() -> dict:

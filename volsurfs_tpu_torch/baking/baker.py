@@ -1,9 +1,21 @@
-"""Baker: texture baking and scene.json export for the real-time viewer
-(counterpart of the ``--extract_textures`` stage of
+"""Baker: mesh extraction, simplification, UV atlasing, texture baking and
+scene.json export for the real-time viewer (counterpart of
 volsurfs_tpu/baking/baker.py).
 
+    python -m volsurfs_tpu_torch.baking.baker --method offsets_surfs --run_id ID \\
+        --extract_meshes --simplify_meshes --compute_meshes_xatlas [--device cuda]
     python -m volsurfs_tpu_torch.baking.baker --method volsurfs --run_id ID \\
         --extract_textures [--device cuda]
+
+``extract_meshes_from_offsets_surfs`` evaluates every surface of a trained
+offsets_surfs model at once on a dense grid on the method's device (the
+shared encoder's K6 lookup without grads, 65,536 points a chunk) and
+marches each surface's column there (``marching.py``), inner to outer;
+``extract_meshes_from_surf`` does the same for a surf SDF's level sets.
+``simplify_and_atlas`` decimates each mesh (``simplify.py``, native) and
+charts and packs its UVs (``uv_atlas.py``, host numpy and scipy), dropping
+empty extractions. ``--extract_bg_mesh`` fuses the depths a method renders
+from the training cameras (``tsdf.py``).
 
 ``bake_textures`` evaluates every SH band of every shell's rgb and alpha
 neural texture at its texel centres (``NeuralTexture.forward(bake=True)``,
@@ -15,10 +27,6 @@ coefficient (rgb + alpha) through ``utils/png.py``. ``export_scene_json``
 writes the scene.json that ``BakedMeshRenderer`` and the WebGL viewer
 load. Stages communicate through the run directory (meshes/, textures/,
 scene.json).
-
-Mesh extraction, simplification, UV atlasing and the background mesh
-(``--extract_meshes``, ``--simplify_meshes``, ``--compute_meshes_xatlas``,
-``--extract_bg_mesh``) are not ported yet (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -31,11 +39,66 @@ import numpy as np
 import torch
 
 from volsurfs_tpu_torch.baking import mesh_io
+from volsurfs_tpu_torch.baking.marching import (
+    evaluate_grid,
+    extract_mesh_from_fn,
+    grid_origin_spacing,
+    marching_tetrahedra,
+)
 from volsurfs_tpu_torch.methods.volsurfs import resolve_device
 from volsurfs_tpu_torch.models.textures import DEG_NR_COEFFS
 from volsurfs_tpu_torch.utils import png
 
-MESH_STAGES = ("extract_meshes", "simplify_meshes", "compute_meshes_xatlas", "extract_bg_mesh")
+
+def extract_meshes_from_surf(method, resolution: int = 256, levels=(0.0,)):
+    """Level-set meshes [(verts, faces), ...] of a trained surf SDF at its
+    iter_nr, on the method's device."""
+    bounds = float(method.radius)
+    return [extract_mesh_from_fn(lambda p: method._sdf(p, method.iter_nr)[0][..., 0],
+                                 resolution, bounds, level=level, device=method.device)
+            for level in levels]
+
+
+def extract_meshes_from_offsets_surfs(method, resolution: int = 256):
+    """The zero-level-set meshes [(verts, faces), ...] of every surface of a
+    trained offsets_surfs model at its iter_nr, inner -> outer: one
+    evaluation of all surfaces on the grid, then a march a surface, all on
+    the method's device."""
+    bounds = float(method.radius)
+    values = evaluate_grid(lambda p: method._sdfs(p, method.iter_nr)[0][..., 0], resolution,
+                           bounds, device=method.device)
+    origin, spacing = grid_origin_spacing(resolution, bounds)
+    return [marching_tetrahedra(values[..., k], origin, spacing)
+            for k in range(values.shape[-1])]
+
+
+def simplify_and_atlas(meshes, target_faces_ratio: float = 0.025):
+    """Simplify, then atlas, each mesh; returns [(verts, faces, uvs), ...].
+
+    Empty extractions (a level set that left the grid, e.g. offsets not yet
+    converged) are dropped with a warning, as the JAX package drops them.
+    The meshes are simplified in threads at once (the native call holds no
+    Python lock), then atlased one after another."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from volsurfs_tpu_torch.baking.simplify import simplify_mesh
+    from volsurfs_tpu_torch.baking.uv_atlas import compute_atlas
+
+    kept = []
+    for i, (v, f) in enumerate(meshes):
+        if f.shape[0] < 4:
+            print(f"WARNING: mesh {i} extraction is empty/degenerate "
+                  f"({f.shape[0]} faces); skipping this shell", flush=True)
+            continue
+        kept.append((v, f))
+    with ThreadPoolExecutor(max(1, len(kept))) as pool:
+        simplified = list(pool.map(lambda m: simplify_mesh(*m, target_faces_ratio), kept))
+    out = []
+    for (v, f), (sv, sf) in zip(kept, simplified):
+        if sf.shape[0] < 4:
+            sv, sf = v, f  # simplification degenerated; keep the original
+        out.append(compute_atlas(sv, sf))
+    return out
 
 
 def save_meshes(run_dir: str, meshes, subdir: str = "meshes"):
@@ -201,9 +264,12 @@ def copy_meshes_renumbered(meshes_dir: str, mesh_files, run_dir: str):
 
 
 def main(argv=None):
-    """Baker CLI: loads a trained run from its directory and bakes its
-    textures and scene.json (--extract_textures). --device defaults to
-    cuda (on a host without CUDA it raises unless --device cpu)."""
+    """Baker CLI: loads a trained run from its directory and runs the stages
+    asked for: --extract_meshes (into run_dir/meshes_raw/), --simplify_meshes
+    / --compute_meshes_xatlas (both simplify and atlas, into run_dir/meshes/),
+    --extract_bg_mesh (run_dir/bg_mesh.obj), --extract_textures (textures/
+    and scene.json of a volsurfs run). --device defaults to cuda (on a host
+    without CUDA it raises unless --device cpu)."""
     import argparse
 
     from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
@@ -226,19 +292,19 @@ def main(argv=None):
     parser.add_argument("--datasets_path", default=None)
     parser.add_argument("--runs_path", default=None)
     parser.add_argument("--meshes_path", default=None)
-    for stage in MESH_STAGES:
-        parser.add_argument(f"--{stage}", action="store_true",
-                            help="not ported (ROADMAP.md Queue 1 item 7)")
+    parser.add_argument("--extract_meshes", action="store_true")
+    parser.add_argument("--simplify_meshes", action="store_true")
+    parser.add_argument("--compute_meshes_xatlas", action="store_true")
+    parser.add_argument("--extract_bg_mesh", action="store_true")
     parser.add_argument("--extract_textures", action="store_true")
+    parser.add_argument("--extraction_res", type=int, default=256)
+    parser.add_argument("--simplify_ratio", type=float, default=0.025)
+    parser.add_argument("--occupancy_res", type=int, default=256)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     require_ported(args.method)
-    for stage in MESH_STAGES:
-        if getattr(args, stage):
-            raise NotImplementedError(
-                f"--{stage} is not ported to torch yet (ROADMAP.md Queue 1 item 7)")
     device = resolve_device(args.device)
 
     cfg_dir = os.path.join(os.path.dirname(__file__), "..", "..", "config")
@@ -257,15 +323,56 @@ def main(argv=None):
 
     mv_data = MVDataset(args.dataset, args.scene, paths.datasets_path,
                         config=dict(data_params.dict))
-    meshes_dir = args.meshes_path or os.path.join(run_dir, "meshes")
-    mesh_files, meshes = load_shells(meshes_dir, hp)
+    method_kwargs = {}
+    if args.method == "volsurfs":
+        meshes_dir = args.meshes_path or os.path.join(run_dir, "meshes")
+        mesh_files, method_kwargs["meshes"] = load_shells(meshes_dir, hp)
+    else:
+        method_kwargs["occupancy_res"] = args.occupancy_res
     method = make_method(args.method, hp, make_bounding_sphere(mv_data.scene_radius),
                          mv_data.bg_color or data_params.bg_color, seed=args.seed,
-                         device=device, meshes=meshes)
+                         device=device, **method_kwargs)
     checkpoints.load_checkpoint(os.path.join(run_dir, "checkpoints"), method)
     print(f"loaded {args.method} checkpoint at iter {method.iter_nr}", flush=True)
 
+    if args.extract_meshes:
+        if args.method == "offsets_surfs":
+            raw = extract_meshes_from_offsets_surfs(method, resolution=args.extraction_res)
+        elif args.method == "surf":
+            raw = extract_meshes_from_surf(method, resolution=args.extraction_res)
+        else:
+            raise ValueError("--extract_meshes needs a surf or offsets_surfs run")
+        save_meshes(run_dir, raw, "meshes_raw")
+        print(f"extracted {len(raw)} meshes -> {run_dir}/meshes_raw", flush=True)
+
+    if args.simplify_meshes or args.compute_meshes_xatlas:
+        src = os.path.join(run_dir, "meshes_raw")
+        raw = [mesh_io.load_obj(os.path.join(src, name))[:2]
+               for name in sorted(f for f in os.listdir(src) if f.endswith(".obj"))]
+        meshes = simplify_and_atlas(raw, args.simplify_ratio)
+        save_meshes(run_dir, meshes)
+        print(f"simplified+atlased {len(meshes)} meshes -> {run_dir}/meshes", flush=True)
+
+    if args.extract_bg_mesh:
+        from volsurfs_tpu_torch.baking.tsdf import fuse_depths
+        from volsurfs_tpu_torch.training.trainer import Trainer
+
+        trainer = Trainer(method, mv_data, run_dir)
+        depths, cams = [], []
+        for cam in mv_data["train"].cameras:
+            out_frame = trainer.render_camera(cam)
+            if "depth" in out_frame:
+                depths.append(out_frame["depth"][..., 0])
+                cams.append(cam)
+        if depths:
+            v, f = fuse_depths(depths, cams, resolution=args.extraction_res // 2,
+                               bounds=float(mv_data.scene_radius) * 2.0, device=device)
+            mesh_io.save_obj(os.path.join(run_dir, "bg_mesh.obj"), v, f)
+            print(f"bg mesh: {v.shape[0]} verts", flush=True)
+
     if args.extract_textures:
+        if args.method != "volsurfs":
+            raise ValueError("--extract_textures requires volsurfs")
         copy_meshes_renumbered(meshes_dir, mesh_files, run_dir)
         meshes_info = bake_textures(method, run_dir)
         scene_path = export_scene_json(run_dir, meshes_info, mv_data,

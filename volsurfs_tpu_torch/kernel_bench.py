@@ -92,17 +92,19 @@ def device_kernels(prof):
 
 
 SPIN_NAME = "spin_kernel"  # the kernel of torch.cuda._sleep
+SHORT_SPINS = 200  # ~50 ms of short spins ahead of a trace's calls
 
 
 def profile_calls(fn, reps, cpu=False, tries=5, spin_cycles=10_000_000):
     """fn() under torch.profiler (CUDA activity, and CPU with cpu=True):
     one call before the trace, then reps calls in it, ended by a
-    synchronize, between 32 short spin kernels (~0.25 ms each) and a long
-    one (~5 ms). Returns (the device events of the traced calls, host wall
-    ms a traced call, the captures taken). Once other traces ran in the
+    synchronize, between SHORT_SPINS short spin kernels (~0.25 ms each) and
+    a long one (~5 ms). Returns (the device events of the traced calls, host
+    wall ms a traced call, the captures taken). Once other traces ran in the
     process, the tracer can lose the first events of a trace (chip_smoke.py
-    once read K4 at half its time), so the short spins come first to take
-    that loss, and only the events after the last short spin that survived
+    once read K4 at half its time, and once lost 32 short spins and the
+    first call's first kernel in each of 5 captures), so the short spins
+    come first to take that loss, and only the events after the last short spin that survived
     and before the long one are kept. A capture without the long spin, with
     no events, or in which some name's count is not a multiple of reps, is
     taken again, up to tries times, and raises if it stays so."""
@@ -114,7 +116,7 @@ def profile_calls(fn, reps, cpu=False, tries=5, spin_cycles=10_000_000):
     faults = []
     for capture in range(1, tries + 1):
         with profile(activities=activities) as prof:
-            for _ in range(32):
+            for _ in range(SHORT_SPINS):
                 torch.cuda._sleep(spin_cycles // 20)
             torch.cuda.synchronize()
             t = time.perf_counter()

@@ -13,7 +13,8 @@ outer to inner. The SDF with every surface's analytic gradient is one
 lookup of kernel K6 with grads.
 
 The shared colour and transparency fields (``are_surfs_*_indep`` 0, as the
-configs set them) look their position encoding up once for all K surfaces
+configs set them above one surface; at one surface, base_1.cfg's, the flags
+select nothing) look their position encoding up once for all K surfaces
 (``RGB.forward_surfaces``), where JAX looks it up K times at the same
 points; the table's gradient is then one sum instead of K.
 
@@ -93,10 +94,14 @@ class OffsetsSurfs:
             raise NotImplementedError(
                 f"bg_color {bg_color!r}: the trained background (NerfHash) is not ported "
                 f"({NOT_PORTED_ITEM})")
-        if hp.are_surfs_colors_indep or hp.are_surfs_transparency_indep:
+        # with one surface the per-surface fields are the shared ones: JAX
+        # builds one model of each, rgb_0 and alpha_0, either way (base_1.cfg
+        # sets both flags)
+        if self.nr_surfs > 1 and (hp.are_surfs_colors_indep or hp.are_surfs_transparency_indep):
             raise NotImplementedError(
                 "offsets_surfs: per-surface colour or transparency fields "
-                "(are_surfs_*_indep) are not ported; every config shares them")
+                "(are_surfs_*_indep) above one surface are not ported; only "
+                "config/offsets_surfs/base_1.cfg sets them, at one surface")
 
         # the offsets-init targets, from the logistic stdev of the first
         # phase's starting variance
@@ -326,6 +331,11 @@ class OffsetsSurfs:
         """Fit the offsets to offsets_gt at random points (the main surface
         frozen), with the support surfaces' eikonal term."""
         hp = self.hp
+        if self.nr_surfs == 1:
+            # no offset to fit (base_1.cfg): the loss is 0, its gradient 0
+            # (JAX's concatenation of no eps head raises here)
+            zero = 0.0 * next(self.models["sdfs"].parameters()).sum()
+            return zero, {"loss": zero, "offsets": zero.detach(), "eikonal_supp": zero.detach()}
         sdfs = self.models["sdfs"]
         pts = self.bounding_primitive.get_random_points_inside(self.generator,
                                                                self.nr_offsets_init_points)
