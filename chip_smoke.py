@@ -8,7 +8,8 @@ on the five committed shells in runs/pipeline_tpu_256/volsurfs/meshes/,
 then its surf stage at the width of config/surf/base.cfg, then its
 offsets_surfs stage at the width of config/offsets_surfs/base_5.cfg from
 the surf stage's SDF, then the pipeline's mesh baking and volsurfs stage
-on the shells of that offsets_surfs model:
+on the shells of that offsets_surfs model, then the nerf method at the
+width of config/nerf/base.cfg:
 
 1. the card's name and power limit (and scipy's version: the pipeline's UV
    atlas needs it, and without it this phase raises);
@@ -134,7 +135,7 @@ on the shells of that offsets_surfs model:
    model on a 128^3 grid, the same values marched on the card and on the
    CPU: faces equal, vertices within 1e-6;
 20. the pipeline's stages 3-5 from phase 16's trained model (the main path
-   pipeline_stage): its 5 shells extracted on the card at 128^3 (the
+   pipeline_stage): its 5 shells extracted on the card at 96^3 (the
    baker's 256^3 cut: see EXTRACTION_RES)
    (baker.extract_meshes_from_offsets_surfs: one field evaluation, K6
    without grads, then a march a surface), simplified at 0.025 and
@@ -146,13 +147,32 @@ on the shells of that offsets_surfs model:
    both bars tests/test_pipeline_e2e.py's); every shell with more than 10
    vertices and faces; the seconds of each step, the shells' raw and
    simplified sizes, the peak memory and the launches over the path (K6,
-   K1, K2 and K4 each > 0, no plain version).
+   K1, K2 and K4 each > 0, no plain version);
+21. the nerf stage: config/nerf/base.cfg at full width (Density 32-32-32
+   with 32 geometry features, RGB 128-128-64 at SH degree 3, two 24-level
+   permutohedral tables, 512 rays dynamic, 64 + 32 samples, a 256^3
+   grid) through Trainer.train on the sphere scene of phase 5, its
+   schedule cut by one factor, NERF_SCALE (the cuts in the
+   ``nerf_setup`` line; the sparsity term's gate past step 5,000 is not
+   cut): the median step, the loss, the occupancy refreshes (every 50
+   steps) with the occupied share after each;
+22. the rest of that stage: the checkpoint (grid included) loaded into a
+   fresh NeRF, whose render of test camera 0 must equal the trained one's
+   bit for bit; eval_split of the test split (psnr > 14 dB, the bar of
+   tests/test_nerf_e2e.py); 3 steps under the profiler; the launches over
+   phases 21-22 (K6 forward and backward, K7, K8a, K8b forward and
+   backward and K8d each > 0, K1 and K8c 0, no plain version) and the
+   path's seconds beside its 60 s budget;
+23. kernel K8d (csrc/volrender.cu: the nerf importance round) against its
+   plain version at the nerf step's shape (the rays of the path's last
+   steps, 64 samples, 32 new depths) and a 2,048-ray render chunk's
+   (kernel_bench.k8d_case), with times, the bound and registers.
 
 The main paths, each with the launch counts set to 0 before it and read
 after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
 begins with train_render, from one reset), baked_render (phases 9-10),
-surf_stage (phases 14-15), offsets_stage (phases 16-17) and
-pipeline_stage (phase 20).
+surf_stage (phases 14-15), offsets_stage (phases 16-17),
+pipeline_stage (phase 20) and nerf_stage (phases 21-22).
 
 Each phase prints one JSON line. The line before the last is the kernel
 table; the last line is {"ok": true, "device": {...}}. Any failure raises
@@ -236,15 +256,27 @@ OFFSETS_CLIP_TO_OCCUPANCY = True
 # the pipeline path (phases 19-20): the shells' extraction grid (cut from
 # the baker's 256) and simplification (the baker's), the device marching's
 # check grid, and tests/test_pipeline_e2e.py's bars
-# (128: at 256^3 the noisy SDF of the cut stages gave 1.88M raw faces a
+# (96: at 256^3 the noisy SDF of the cut stages gave 1.88M raw faces a
 # shell and 51 s of simplifying and atlasing for one shell on the card's
 # host; at 192^3, 0.57-1.31M faces a shell and 111.5 s for five, past the
-# path's 90 s; at 128^3 the path takes ~82 s)
-EXTRACTION_RES = 128
+# path's 90 s; at 128^3 the path took 82-91 s, 51-57 s of it simplifying
+# and atlasing, which left the whole run no room under its 620 s once the
+# nerf path joined)
+EXTRACTION_RES = 96
 SIMPLIFY_RATIO = 0.025
 MARCHING_CHECK_RES = 128
 PIPELINE_VOLSURFS_PSNR_BAR = 14.0
 PIPELINE_BAKED_PSNR_BAR = 13.0
+# the nerf stage: config/nerf/base.cfg, its schedule cut by one factor;
+# its test PSNR must pass tests/test_nerf_e2e.py's bar. The sparsity term's
+# gate (past step 5,000, JAX's constant) is not cut, so it stays shut. At
+# 1/200 (1,000 steps) the field stayed empty (11.6 dB, the white
+# background 10.8); at 1/100 it fills between steps ~650 and ~800 (10 runs
+# at 29.20-29.30 dB); 1/125 (1,600 steps) keeps the path in its 60 s
+NERF_CFG = os.path.join(REPO, "config", "nerf", "base.cfg")
+NERF_SCALE = 1 / 125
+NERF_PSNR_BAR = 14.0
+NERF_BUDGET_S = 60.0  # the path's time budget (reported, not enforced)
 CHUNK_SURF = 16384  # rays of a render chunk (base.cfg's test_rays_batch_size)
 PROFILED_STEPS = 3
 # the sphere scene as the stage trains on it: 24 train and 4 test cameras
@@ -266,11 +298,12 @@ def emit(phase, **fields):
 
 
 # kernel families whose device time and launches a profile reports apart
-WATCHED = ("permuto", "scatter_add", "Memset", "combine_samples", "neus_")
+WATCHED = ("permuto", "scatter_add", "Memset", "combine_samples", "neus_", "nerf_")
 
 
 def profiled(fn, reps, top=5):
-    """fn() run under torch.profiler (CPU and CUDA activity): one call
+    """fn() run under torch.profiler (CUDA activity; tracing the host's
+    ops too took ~70 s of a run and slowed the traced calls): one call
     before the trace, then reps traced calls (kernel_bench.profile_calls).
     Returns per traced call: host wall ms (ending in a synchronize),
     device-busy ms (the sum of kernel times; one stream, so kernels do not
@@ -281,7 +314,7 @@ def profiled(fn, reps, top=5):
     events in every capture."""
     from volsurfs_tpu_torch.kernel_bench import profile_calls
 
-    kernels, wall_ms, captures = profile_calls(fn, reps, cpu=True)
+    kernels, wall_ms, captures = profile_calls(fn, reps)
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / reps
     by_name = {}
     for e in kernels:
@@ -418,8 +451,10 @@ def check_trace(stacked, meshes, shape, rays_o, rays_d, build_s=None, cull=None)
     bary_err = float((out["barycentric"] - ref["barycentric"]).abs().max())
     fn = lambda: B.trace_all(stacked, rays_o, rays_d, cull)  # noqa: E731
     ms, kernel_device_ms = kb.time_ms(fn), kb.device_ms(fn)
+    # one timing, warm from the check above: the plain trace takes 0.6-5.6 s
+    # a call on the card, three more took ~28 s of the run
     plain_ms = kb.time_ms(lambda: B.trace_all_reference(stacked, rays_o, rays_d, cull),
-                          reps=3, warmup=1)
+                          reps=1, warmup=0)
     stacked.check_step_cap()
     k, R = stacked.node_begin.shape[0], rays_o.shape[0]
     # the nodes and triangles these rays read, rays in, (t, id, u, v) out
@@ -1472,6 +1507,191 @@ def phase_offsets(device, mv, sdf_state):
     return counts, rays, method
 
 
+def nerf_hyper_params(scale=NERF_SCALE):
+    """config/nerf/base.cfg at its full width, its schedule cut by one
+    factor: the run (200000), the warmup (3000), the density's
+    coarse-to-fine (1000) and the milestones (100000, 150000, 180000,
+    190000). Returns (hp, the cuts)."""
+    from volsurfs_tpu_torch.params.hyper_params import get_method_hyper_params
+
+    hp = get_method_hyper_params("nerf", NERF_CFG)
+    cuts = {}
+    for name in ("training_end_iter", "nr_warmup_iters", "density_nr_iters_for_c2f"):
+        cuts[name] = [getattr(hp, name), max(1, round(getattr(hp, name) * scale))]
+        setattr(hp, name, cuts[name][1])
+    cuts["lr_milestones"] = [list(hp.lr_milestones), [round(m * scale) for m in hp.lr_milestones]]
+    hp.lr_milestones = cuts["lr_milestones"][1]
+    return hp, cuts
+
+
+def make_nerf(hp, device, seed):
+    from volsurfs_tpu_torch.methods.nerf import NeRF
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+
+    return NeRF(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=256,
+                device=device, seed=seed)
+
+
+def phase_nerf_train(device, mv, run_dir, scale=NERF_SCALE):
+    """The nerf stage's training through Trainer.train (phase 21): the
+    median step time, the loss, the occupancy refreshes (every 50 steps)
+    with the occupied share after each and their seconds. Returns the
+    trainer."""
+    from volsurfs_tpu_torch.methods.nerf import NeRF
+    from volsurfs_tpu_torch.params.params import TrainParams
+    from volsurfs_tpu_torch.training import callbacks as CB
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    hp, cuts = nerf_hyper_params(scale)
+    t = time.perf_counter()
+    method = make_nerf(hp, device, seed=0)
+    timer = CB.StepTimerCallback(device)
+    trainer = Trainer(method, mv, run_dir, log_every=100, seed=0,
+                      train_params=TrainParams("nerf", TRAIN_CFG),
+                      callbacks=CB.CallbacksGroup([timer]))
+    refreshes = []
+    refresh = method.update_occupancy_grid
+
+    def recorded_refresh():
+        t0 = time.perf_counter()
+        refresh()
+        share = float(method.grid.occupancy_fraction())  # syncs
+        refreshes.append([method.iter_nr, share, time.perf_counter() - t0])
+
+    method.update_occupancy_grid = recorded_refresh
+    emit("nerf_setup", setup_s=time.perf_counter() - t, cuts=cuts, scale=scale,
+         sparsity_start_iter=NeRF.sparsity_start_iter,
+         params={k: sum(p.numel() for p in m.parameters()) for k, m in method.models.items()},
+         rays_per_step=hp.training_rays_batch_size, samples=[hp.max_nr_samples_per_ray,
+                                                             hp.max_nr_imp_samples_per_ray],
+         lr=hp.lr)
+    buckets = []
+    t = time.perf_counter()
+    trainer.train(callback=lambda it, m, losses: buckets.append(trainer._rays_bucket))
+    train_s = time.perf_counter() - t
+    del method.update_occupancy_grid
+    losses, step_ms = timer.losses(), np.asarray(timer.step_ms)
+    result = dict(steps=len(losses), train_s=train_s, first_10=float(losses[:10].mean()),
+                  last_10=float(losses[-10:].mean()),
+                  median_step_ms=float(np.median(step_ms[5:])), refreshes=refreshes,
+                  rays_bucket_by_step=buckets[::25],
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("nerf_train", **result)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"nerf: losses not finite: {losses.tolist()}")
+    if not result["last_10"] < result["first_10"] or not refreshes:
+        raise AssertionError(f"nerf: the loss did not fall or no refresh: {result}")
+    return trainer
+
+
+def phase_nerf_stage(device, trainer, chunk, profile=True):
+    """The rest of the nerf stage (phase 22): the checkpoint round trip (a
+    fresh NeRF, other seed, renders test camera 0 bit for bit alike),
+    eval_split of the test split and, with profile, 3 profiled steps.
+    Returns the evaluation's means."""
+    from volsurfs_tpu_torch.training import checkpoints
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    method, mv, run_dir = trainer.method, trainer.mv_data, trainer.run_dir
+    cam = mv["test"].cameras[0]
+    t = time.perf_counter()
+    path = trainer.save_checkpoint()
+    sync(device)
+    save_s = time.perf_counter() - t
+    fresh = make_nerf(method.hp, device, seed=1)
+    checkpoints.load_checkpoint(trainer.ckpt_dir, fresh)
+    reloaded = Trainer(fresh, mv, os.path.join(run_dir, "reloaded"))
+    ref = trainer.render_camera(cam, chunk)
+    got = reloaded.render_camera(cam, chunk)
+    result = dict(iter_nr=fresh.iter_nr, files=sorted(os.listdir(path)), bytes=dir_bytes(path),
+                  save_s=save_s, outputs={k: list(v.shape) for k, v in got.items()},
+                  render_equal=all(np.array_equal(got[k], ref[k]) for k in ref),
+                  max_abs_diff=max(float(np.abs(got[k] - ref[k]).max()) for k in ref),
+                  grid_equal=bool(torch.equal(fresh.grid.occupied, method.grid.occupied)))
+    emit("nerf_checkpoint", **result)
+    if not (result["render_equal"] and result["grid_equal"]) or fresh.iter_nr != method.iter_nr:
+        raise AssertionError(f"nerf checkpoint round trip differs: {result}")
+    del fresh, reloaded
+
+    t = time.perf_counter()
+    means = trainer.eval_split("test", chunk_size=chunk)
+    emit("nerf_eval", split="test", cameras=len(mv["test"].cameras),
+         seconds=time.perf_counter() - t, bar_psnr=NERF_PSNR_BAR, **means)
+    if not means["psnr"] > NERF_PSNR_BAR:
+        raise AssertionError(f"nerf: test psnr {means['psnr']} <= {NERF_PSNR_BAR}")
+    if profile:
+        emit("nerf_train_profile", steps=PROFILED_STEPS, rays=trainer._rays_bucket,
+             **profiled(trainer.train_iteration, PROFILED_STEPS, top=8))
+    return means
+
+
+def phase_nerf(device, mv, scale=NERF_SCALE, profile=True):
+    """The main path nerf_stage (phases 21-22), with the counts reset.
+    Returns (its launches, the rays of its last step)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_nerf_run_")
+    t = time.perf_counter()
+    reset_counts()  # the main path nerf_stage: train, checkpoint, evaluate, profile
+    trainer = phase_nerf_train(device, mv, run_tmp.name, scale)
+    phase_nerf_stage(device, trainer, CHUNK_SURF, profile)
+    counts = read_counts()
+    emit("nerf_stage_launches", seconds=time.perf_counter() - t, budget_s=NERF_BUDGET_S,
+         **counts)
+    rays = trainer._rays_bucket
+    del trainer
+    run_tmp.cleanup()
+    torch.cuda.empty_cache()
+    # K6, K7, K8a, K8b and K8d as kernels; not K1 (K6's backward adds the
+    # table's gradient) nor K8c (NeuS'); no plain version
+    ran = ("permuto_fwd", "permuto_bwd", "occupancy_sampler", "combine_samples",
+           "neus_transmittance_fwd", "neus_transmittance_bwd", "nerf_importance")
+    plain = [k for k, v in counts.items() if k.endswith("_reference") and v]
+    if (min(counts[k] for k in ran) <= 0 or counts["scatter_add"] or counts["neus_importance"]
+            or plain):
+        raise AssertionError(f"the nerf path's launches are off: {counts}")
+    return counts, rays
+
+
+def _k8d_cost(R, S, n):
+    """(bytes, operations) of one K8d call: z, dt, the mask and the density
+    read once (13 B a sample), the jitter (4 B a target), the depths and
+    mask written (5 B a target); ~20 operations a sample (the alpha's
+    product, exponential, difference and clamps, the scan's factor and
+    product, the weight, the sums and the normalised CDF entry) and
+    2 log2(S) + 12 a new depth."""
+    return R * S * 13 + R * n * 9, R * S * 20 + R * n * (2 * int(np.log2(S)) + 12)
+
+
+def phase_nerf_importance(device, resources, cases):
+    """K8d against its plain version (phase 23) at each case {name: R}:
+    the nerf step's shape at the rays its path's last steps took and a
+    2,048-ray render chunk's, 64 samples and 32 new depths
+    (kernel_bench.k8d_case), with jitter: the masks equal, the depths by
+    kernel_bench.k8_check's tolerance. Returns {name: row}."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    registers = resources.get("nerf_importance_kernel", {}).get("registers")
+    rows = {}
+    for name, R in cases.items():
+        args = kb.k8d_case(device, R)
+        got, ref = VR.nerf_importance(*args), VR.nerf_importance_reference(*args)
+        check = kb.k8_check("importance", (got.z, got.mask), (ref.z, ref.mask))
+        bound_ms, bound_by = _bound(*_k8d_cost(R, kb.K8D_UNIFORM, kb.K8D_IMP))
+        fn = lambda: VR.nerf_importance(*args)  # noqa: E731
+        row = dict(kernel="nerf_importance", case=name, rays=R, samples=kb.K8D_UNIFORM,
+                   targets=kb.K8D_IMP, **check, ms=kb.time_ms(fn), device_ms=kb.device_ms(fn),
+                   plain_ms=kb.time_ms(lambda: VR.nerf_importance_reference(*args), reps=5,
+                                       warmup=1),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, registers=registers)
+        emit("k8d_nerf_importance", **row)
+        if not check["ok"]:
+            raise AssertionError(f"K8d ({name}) disagrees with its plain version: {row}")
+        rows[name] = row
+    return rows
+
+
 def phase_marching(offsets):
     """The device marching against the CPU marching (phase 19): the main
     surface of the trained offsets_surfs model on a MARCHING_CHECK_RES^3
@@ -1620,6 +1840,9 @@ def main():
     phase_marching(offsets_method)
     pipeline = phase_pipeline(device, offsets_method, mv, kb.CHUNK)
     del offsets_method
+    nerf, nerf_rays = phase_nerf(device, mv)
+    k8d = phase_nerf_importance(device, resources, {"nerf_step": nerf_rays,
+                                                    "render_chunk": kb.K8_EVAL_RAYS})
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: over the volsurfs stage (which begins with train_render), the
@@ -1677,7 +1900,7 @@ def main():
                              ("permuto_backward", "bwd_", "permuto_backward_grads_points_kernel")):
         count = "permuto_" + side[:-1]
         # the pipeline path evaluates its field without grads: K6's forward only
-        paths = {"surf_stage": surf, "offsets_stage": offsets}
+        paths = {"surf_stage": surf, "offsets_stage": offsets, "nerf_stage": nerf}
         if side == "fwd_":
             paths["pipeline_stage"] = pipeline
         kernels.append(dict(
@@ -1698,11 +1921,14 @@ def main():
         name="occupancy_samples", route="cuda",
         source="volsurfs_tpu_torch/csrc/occupancy_sampler.cu",
         replaces="volsurfs_tpu/ops/samplers.py:105",
-        launches=surf["occupancy_sampler"] + offsets["occupancy_sampler"],
+        launches=surf["occupancy_sampler"] + offsets["occupancy_sampler"]
+        + nerf["occupancy_sampler"],
         launches_by_path={"surf_stage": surf["occupancy_sampler"],
-                          "offsets_stage": offsets["occupancy_sampler"]},
+                          "offsets_stage": offsets["occupancy_sampler"],
+                          "nerf_stage": nerf["occupancy_sampler"]},
         plain_launches=surf["occupancy_sampler_reference"]
-        + offsets["occupancy_sampler_reference"], shape=k7["shape"],
+        + offsets["occupancy_sampler_reference"] + nerf["occupancy_sampler_reference"],
+        shape=k7["shape"],
         registers={n: r.get("registers") for n, r in resources.items()
                    if n.startswith("occupancy_samples")},
         entries_differ=k7["entries_differ"], **{k: k7[k] for k in keys}))
@@ -1719,14 +1945,27 @@ def main():
             ("neus_importance", "neus_importance", "neus_importance_reference",
              "neus_importance_kernel", "volsurfs_tpu/ops/volume_rendering.py:137")):
         row = k8["offsets_step"][kernel]
+        # the nerf path runs K8a and K8b, not K8c (NeuS' importance round)
+        paths = {"surf_stage": surf, "offsets_stage": offsets}
+        if kernel != "neus_importance":
+            paths["nerf_stage"] = nerf
         kernels.append(dict(
             name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/volrender.cu",
-            replaces=line, launches=surf[count] + offsets[count],
-            launches_by_path={"surf_stage": surf[count], "offsets_stage": offsets[count]},
-            plain_launches=surf[plain] + offsets[plain],
+            replaces=line, launches=sum(c[count] for c in paths.values()),
+            launches_by_path={p: c[count] for p, c in paths.items()},
+            plain_launches=sum(c[plain] for c in paths.values()),
             shape=f"{row['surfaces']}_surfaces_{row['rays']}_rays_{row['case']}", kernel=fn,
             registers=resources.get(fn, {}).get("registers"),
             entries_differ=row["entries_differ"], **{k: row[k] for k in keys}))
+    row = k8d["nerf_step"]
+    kernels.append(dict(
+        name="nerf_importance", route="cuda", source="volsurfs_tpu_torch/csrc/volrender.cu",
+        replaces="volsurfs_tpu/methods/nerf.py:143", launches=nerf["nerf_importance"],
+        launches_by_path={"nerf_stage": nerf["nerf_importance"]},
+        plain_launches=nerf["nerf_importance_reference"],
+        shape=f"{row['rays']}_rays_{row['samples']}_samples_{row['targets']}_targets",
+        kernel="nerf_importance_kernel", registers=row["registers"],
+        entries_differ=row["entries_differ"], **{k: row[k] for k in keys}))
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:
         if (k["launches"] <= 0 or k["plain_launches"] != 0

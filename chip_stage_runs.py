@@ -1,6 +1,7 @@
-"""Repeats chip_smoke.py's main paths surf_stage and offsets_stage on one
-CUDA card, to see how the offsets_surfs stage's test psnr spreads with the
-cut of its schedule and with clipping its rays to the occupied space.
+"""Repeats chip_smoke.py's main paths surf_stage and offsets_stage, or
+nerf_stage, on one CUDA card, to see how a stage's test psnr spreads with
+the cut of its schedule (and the offsets_surfs stage's with clipping its
+rays to the occupied space).
 
     python3 chip_stage_runs.py RUNS SCALES WORKERS OUT_DIR [CLIP [RES]]
 
@@ -39,6 +40,16 @@ Prints a line a run (its test psnrs, the refreshes with their variance and
 beta, each phase's losses, whether and where it dipped), then a line a
 (scale, clip); exits 1 if any run failed its bars. No run is retried.
 Imports nothing of JAX.
+
+    python3 chip_stage_runs.py nerf RUNS SCALES WORKERS OUT_DIR
+
+runs phases 21-22 of chip_smoke.py (the main path nerf_stage, without its
+profiled steps) RUNS times at each comma-separated cut of the nerf
+schedule in SCALES (chip_smoke.py runs NERF_SCALE), each run in its own
+process and WORKERS at once, with their logs in OUT_DIR (gzipped); prints
+a line a run (the test psnr, the path's seconds, the median step, the
+refreshes) and a line a scale (the psnrs, their median and range, the
+runs under chip_smoke.py's bar); exits 1 if any run failed.
 """
 
 import gzip
@@ -191,6 +202,83 @@ def stage_run(scale, clip, dip_path, resolutions):
     return 0
 
 
+def nerf_run(scale):
+    """One run of the nerf path at the cut scale, in this process."""
+    chip_smoke = _chip_smoke()
+    import torch
+
+    from volsurfs_tpu_torch.datasets.mvdataset import MVDataset
+
+    mv = MVDataset("synthetic", "sphere", "", config=chip_smoke.STAGE_DATA)
+    chip_smoke.phase_nerf(torch.device("cuda"), mv, scale, profile=False)
+    return 0
+
+
+def nerf_main(runs, scales, workers, out_dir):
+    chip_smoke = _chip_smoke()
+    from volsurfs_tpu_torch import _build
+
+    _build.kernels()  # once, before the children load the libraries
+    os.makedirs(out_dir, exist_ok=True)
+    results = {scale: [] for scale in scales}
+
+    def finished(job, log, rc, seconds):
+        i, scale = job
+        ev, train = _line(log, "nerf_eval") or {}, _line(log, "nerf_train") or {}
+        path = _line(log, "nerf_stage_launches") or {}
+        line = dict(nerf_run=i, scale=scale, rc=rc, seconds=seconds, psnr=ev.get("psnr"),
+                    path_s=path.get("seconds"), median_step_ms=train.get("median_step_ms"),
+                    train_s=train.get("train_s"), last_10=train.get("last_10"),
+                    refreshes=train.get("refreshes"))
+        results[scale].append(line)
+        print(json.dumps(line), flush=True)
+
+    _pool([((i, scale), ["--nerf-run", repr(scale)],
+            os.path.join(out_dir, f"nerf_{scale:g}_{i}.log"))
+           for i in range(runs) for scale in scales], workers, finished)
+    failed = 0
+    for scale, lines in results.items():
+        psnr = sorted(r["psnr"] for r in lines if r["psnr"] is not None)
+        failed += sum(r["rc"] != 0 for r in lines)
+        print(json.dumps(dict(scale=scale, runs=len(lines), bar_psnr=chip_smoke.NERF_PSNR_BAR,
+                              psnr=psnr, median=statistics.median(psnr) if psnr else None,
+                              min=min(psnr, default=None), max=max(psnr, default=None),
+                              failed_runs=[r["nerf_run"] for r in lines if r["rc"] != 0],
+                              path_s=[r["path_s"] for r in lines])), flush=True)
+    return 1 if failed else 0
+
+
+def _pool(jobs, workers, finished):
+    """Runs jobs [(key, this script's arguments, log path)], each in its own
+    process, workers at once, each killed past RUN_LIMIT_S; calls
+    finished(key, log, rc, seconds) as each ends, then gzips its log."""
+    # several runs share the card: allocate in expandable segments so that
+    # each run's cache holds less memory it does not use
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    queue, running = list(jobs), []
+    while queue or running:
+        while queue and len(running) < workers:
+            key, argv, log = queue.pop(0)
+            with open(log, "w") as out:
+                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv],
+                                        stdout=out, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+            running.append((key, log, proc, time.perf_counter()))
+        time.sleep(1.0)
+        for job in list(running):
+            key, log, proc, t0 = job
+            if proc.poll() is None and time.perf_counter() - t0 < RUN_LIMIT_S:
+                continue
+            if proc.poll() is None:
+                proc.kill()
+            rc = proc.wait()
+            running.remove(job)
+            finished(key, log, rc, time.perf_counter() - t0)
+            with open(log, "rb") as f, gzip.open(log + ".gz", "wb") as z:
+                shutil.copyfileobj(f, z)
+            os.remove(log)
+
+
 def _line(log, phase):
     with open(log) as f:
         return next((json.loads(line) for line in f
@@ -201,6 +289,13 @@ def main():
     if sys.argv[1:2] == ["--run"]:
         return stage_run(float(sys.argv[2]), sys.argv[3] == "on", sys.argv[4],
                          [int(r) for r in sys.argv[5].split(",")])
+    if sys.argv[1:2] == ["--nerf-run"]:
+        return nerf_run(float(sys.argv[2]))
+    if sys.argv[1:2] == ["nerf"]:
+        if len(sys.argv) != 6:
+            raise SystemExit(__doc__)
+        return nerf_main(int(sys.argv[2]), [float(x) for x in sys.argv[3].split(",")],
+                         int(sys.argv[4]), sys.argv[5])
     if len(sys.argv) not in (5, 6, 7):
         raise SystemExit(__doc__)
     runs, workers, out_dir = int(sys.argv[1]), int(sys.argv[3]), sys.argv[4]
@@ -218,53 +313,37 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     dip_dir = tempfile.mkdtemp(prefix="vs_dips_")
     settings = [(scale, clip) for scale in scales for clip in clips]
-    queue = [(i, scale, clip) for i in range(runs) for scale, clip in settings]
-    running, results = [], {s: [] for s in settings}
-    # several runs share the card: allocate in expandable segments so that
-    # each run's cache holds less memory it does not use
-    env = dict(os.environ, OMP_NUM_THREADS="2",
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    while queue or running:
-        while queue and len(running) < workers:
-            i, scale, clip = queue.pop(0)
+    results = {s: [] for s in settings}
+
+    def finished(job, log, rc, seconds):
+        i, scale, clip, dip = job
+        surf, offsets = _line(log, "surf_eval"), _line(log, "offsets_eval")
+        train, dipped = _line(log, "offsets_train") or {}, _line(log, "offsets_dip_saved")
+        with open(log) as f:
+            shells = [json.loads(x) for x in f if x.startswith('{"phase": "offsets_shells"')]
+        line = dict(stage_run=i, scale=scale, clip=clip, rc=rc, seconds=seconds,
+                    surf_psnr=surf and surf["psnr"], offsets_psnr=offsets and offsets["psnr"],
+                    dip=dipped and {k: dipped[k] for k in (
+                        "iter_nr", "share_before", "share_after", "bytes")},
+                    shells={s["res"]: dict(
+                        shells=sum(min(vf) > 10 for vf in s["simplified"]),
+                        seconds=s["seconds"]) for s in shells},
+                    largest_refresh_fall=train.get("largest_refresh_fall"),
+                    refreshes=train.get("refreshes"),
+                    phases={k: {f: v[f] for f in ("first", "last", "mean_last_5")}
+                            for k, v in train.get("phases", {}).items()})
+        results[(scale, clip)].append(dict(line, dip_path=dipped and dip))
+        print(json.dumps(line), flush=True)
+        _keep_worst_dip(results, out_dir)
+
+    jobs = []
+    for i in range(runs):
+        for scale, clip in settings:
             name = f"stage_{scale:g}_clip_{clip}_{i}"
-            log, dip = os.path.join(out_dir, name + ".log"), os.path.join(dip_dir, name + ".npz")
-            with open(log, "w") as out:
-                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--run",
-                                         repr(scale), clip, dip, res], stdout=out,
-                                        stderr=subprocess.STDOUT, cwd=REPO, env=env)
-            running.append((i, scale, clip, log, dip, proc, time.perf_counter()))
-        time.sleep(1.0)
-        for job in list(running):
-            i, scale, clip, log, dip, proc, t0 = job
-            if proc.poll() is None and time.perf_counter() - t0 < RUN_LIMIT_S:
-                continue
-            if proc.poll() is None:
-                proc.kill()
-            rc = proc.wait()
-            running.remove(job)
-            surf, offsets = _line(log, "surf_eval"), _line(log, "offsets_eval")
-            train, dipped = _line(log, "offsets_train") or {}, _line(log, "offsets_dip_saved")
-            with open(log) as f:
-                shells = [json.loads(x) for x in f if x.startswith('{"phase": "offsets_shells"')]
-            line = dict(stage_run=i, scale=scale, clip=clip, rc=rc,
-                        seconds=time.perf_counter() - t0,
-                        surf_psnr=surf and surf["psnr"], offsets_psnr=offsets and offsets["psnr"],
-                        dip=dipped and {k: dipped[k] for k in (
-                            "iter_nr", "share_before", "share_after", "bytes")},
-                        shells={s["res"]: dict(
-                            shells=sum(min(vf) > 10 for vf in s["simplified"]),
-                            seconds=s["seconds"]) for s in shells},
-                        largest_refresh_fall=train.get("largest_refresh_fall"),
-                        refreshes=train.get("refreshes"),
-                        phases={k: {f: v[f] for f in ("first", "last", "mean_last_5")}
-                                for k, v in train.get("phases", {}).items()})
-            results[(scale, clip)].append(dict(line, dip_path=dipped and dip))
-            print(json.dumps(line), flush=True)
-            _keep_worst_dip(results, out_dir)
-            with open(log, "rb") as f, gzip.open(log + ".gz", "wb") as z:
-                shutil.copyfileobj(f, z)
-            os.remove(log)
+            dip = os.path.join(dip_dir, name + ".npz")
+            jobs.append(((i, scale, clip, dip), ["--run", repr(scale), clip, dip, res],
+                         os.path.join(out_dir, name + ".log")))
+    _pool(jobs, workers, finished)
     failed = 0
     for (scale, clip), lines in results.items():
         psnr = [r["offsets_psnr"] for r in lines if r["offsets_psnr"] is not None]

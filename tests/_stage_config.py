@@ -58,3 +58,32 @@ SURF_HP = dict(
 SURF_DATA = {"width": 32, "height": 32, "nr_train_cameras": 8, "nr_test_cameras": 2}
 SURF_OCCUPANCY_RES = 24
 SURF_INIT_SPHERE_RADIUS = 0.4
+
+# tests/test_nerf_e2e.py's configuration with the permutohedral encoder in
+# place of gridhash for both fields, cut to fit the CPU: 64 rays a step,
+# 12 + 6 samples a ray, 250 steps; lr 3e-3 after a 100-step warmup and the
+# density's coarse-to-fine over 150 steps (at that test's lr 5e-3 and no
+# warmup both packages' density fields collapse to empty in ~20 steps and
+# render the white background alone, 10.77 dB); the sparsity term at
+# base.cfg's weight (its gate, past step 5,000, stays shut), a white
+# background, an occupancy grid of 24^3 voxels
+NERF_HP = dict(
+    is_nr_training_rays_dynamic=False,
+    training_rays_batch_size=64,
+    max_nr_samples_per_ray=12,
+    max_nr_imp_samples_per_ray=6,
+    do_importance_sampling=True,
+    training_end_iter=250,
+    nr_warmup_iters=100,
+    lr=3e-3,
+    lr_milestones=[10000],
+    sparsity_weight=1e-4,
+    geom_feat_size=16,
+    density_nr_iters_for_c2f=150,
+    density_encoding_type="permutohash",
+    rgb_pos_encoder_type="permutohash",
+    rgb_normal_dep=False,
+    nr_samples_bg=8,
+)
+NERF_DATA = SURF_DATA
+NERF_OCCUPANCY_RES = 24

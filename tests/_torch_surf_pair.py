@@ -108,7 +108,8 @@ def feed(monkeypatch, method, draws):
     monkeypatch.setattr(jax.random, "normal", draws.jax_fn(jax.random.normal))
     monkeypatch.setattr(jax.random, "uniform", draws.jax_fn(jax.random.uniform))
     monkeypatch.setattr(method, "_uniform", draws.port_fn)
-    monkeypatch.setattr(method, "_normal", draws.port_fn)
+    if hasattr(method, "_normal"):  # nerf draws no normals
+        monkeypatch.setattr(method, "_normal", draws.port_fn)
     monkeypatch.setattr(BoundingSphere, "get_random_points_inside",
                         lambda self, gen, n: self.points_from_draws(draws.port_fn(),
                                                                     draws.port_fn()))
@@ -141,9 +142,9 @@ def port_grads(method):
             for name, m in method.models.items() for k, p in m.named_parameters()}
 
 
-def jax_grads(grads):
+def jax_grads(grads, names=("sdf", "rgb")):
     flat = {}
-    for name in ("sdf", "rgb"):
+    for name in names:
         tree = grads[name]["params"]
         flat[f"{name}.encoder.table"] = np.asarray(tree["PermutoEncoder_0"]["table"])
         for layer, v in tree["MLP_0"].items():

@@ -834,6 +834,87 @@ def test_importance_kernel_long_rays(cuda, K):
     _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
 
 
+# ---- K8d: the nerf importance round --------------------------------------
+
+
+@pytest.mark.parametrize("R", [512, 2048])
+def test_nerf_importance_kernel_matches_plain(cuda, R):
+    """K8d at the nerf step's shape (64 samples, 32 new depths, the path's
+    512 rays) and a 2,048-ray render chunk's, with and without jitter
+    (kernel_bench.k8d_case): the masks equal, the depths by
+    kernel_bench.k8_check's tolerance, as K8c's."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    samples, density, n, jitter = kb.k8d_case(cuda, R)
+    for jit in (jitter, None):
+        got = VR.nerf_importance(samples, density, n, jit)
+        ref = VR.nerf_importance_reference(samples, density, n, jit)
+        _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
+
+
+@pytest.mark.parametrize("S", [2, 33, 64, 97, 300])
+def test_nerf_importance_kernel_edge_rays(cuda, S):
+    """K8d at row lengths on either side of the warp layout's chunks and
+    tiles, 32 and 48 new depths (more targets than lanes), with and without
+    jitter, on rays of 0, 1, 2 and S valid samples, rays of zero density
+    (their weights' sum under the 1e-6 floor) and of a density of 1e30
+    (alpha 1 at once): the masks equal, the depths by k8_check's
+    tolerance."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+
+    R = 256
+    count = np.random.default_rng(S).integers(0, S + 1, (R, 1))
+    count[:8] = [[0], [1], [min(2, S)], [S], [S], [S], [S], [S]]
+    for n in (32, 48):
+        samples, density, _, jitter = kb.k8d_case(cuda, R, S, n, seed=S + n, count=count)
+        density[4:6] = 0.0
+        density[6:8] = 1e30
+        for jit in (jitter, None):
+            got = VR.nerf_importance(samples, density, n, jit)
+            ref = VR.nerf_importance_reference(samples, density, n, jit)
+            _check_k8("importance", (got.z, got.mask), (ref.z, ref.mask))
+
+
+def test_nerf_steps_on_the_card(cuda, tmp_path):
+    """The nerf configuration of tests/_stage_config.py for 60 steps (two
+    occupancy refreshes) through Trainer.train, then a render of a test
+    camera: finite losses and frame, and the path launched K6 (forward and
+    backward), K7, K8a, K8b (forward and backward) and K8d, no plain
+    version, not K1 and not K8c."""
+    from volsurfs_tpu_torch.methods.nerf import NeRF
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops import samples as TS
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsNeRF
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    from _stage_config import NERF_DATA, NERF_HP, NERF_OCCUPANCY_RES
+
+    modules = (S.launches, P.launches, SP.launches, TS.launches, VR.launches)
+    for counts in modules:
+        for key in counts:
+            counts[key] = 0
+    mv = MVDataset("synthetic", "sphere", "", config=NERF_DATA)
+    method = NeRF(HyperParamsNeRF(**NERF_HP), make_bounding_sphere(1.0), bg_color="white",
+                  occupancy_res=NERF_OCCUPANCY_RES, device=cuda)
+    trainer = Trainer(method, mv, str(tmp_path))
+    losses = []
+    trainer.train(end_iter=60, callback=lambda it, m, l: losses.append(float(l["loss"])))
+    assert len(losses) == 60 and np.isfinite(losses).all()
+    out = trainer.render_camera(mv["test"].cameras[0])
+    assert out["rgb"].shape == (32, 32, 3) and np.isfinite(out["rgb"]).all()
+    counts = {k: v for c in modules for k, v in c.items()}
+    assert min(counts[k] for k in ("permuto_fwd", "permuto_bwd", "occupancy_sampler",
+                                   "combine_samples", "neus_transmittance_fwd",
+                                   "neus_transmittance_bwd", "nerf_importance")) > 0, counts
+    assert counts["scatter_add"] == 0 and counts["neus_importance"] == 0, counts
+    assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts
+
+
 def test_offsets_surfs_steps_on_the_card(cuda, tmp_path):
     """tests/test_offsets_surfs_e2e.py's configuration (permutohash, 3
     surfaces) for its 36 steps through Trainer.train, every phase, then a

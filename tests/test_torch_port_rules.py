@@ -230,9 +230,9 @@ def test_mesh_stages_and_pipeline_without_device_need_cuda(monkeypatch, tmp_path
 
 
 def test_cpu_tensors_take_the_plain_volume_rendering_kernels():
-    """K8a (combine), K8b (the transmittance scan, forward and backward)
-    and K8c (importance sampling) on CPU tensors run their plain
-    versions."""
+    """K8a (combine), K8b (the transmittance scan, forward and backward),
+    K8c (importance sampling) and K8d (the nerf importance round) on CPU
+    tensors run their plain versions."""
     from volsurfs_tpu_torch.ops import samples as TS
     from volsurfs_tpu_torch.ops import volume_rendering as VR
 
@@ -254,7 +254,11 @@ def test_cpu_tensors_take_the_plain_volume_rendering_kernels():
     assert alpha.grad is not None
     imp = VR.neus_importance(a, torch.stack([2.0 - z, 1.8 - z], dim=-1), 20.0, 4)
     assert bool(imp.mask.all()) and imp.z.shape == (1, 4)
+    imp = VR.nerf_importance(a, torch.full((1, 4), 2.0), 4)
+    assert bool(imp.mask.all()) and imp.z.shape == (1, 4)
     assert TS.launches == {"combine_samples": 0, "combine_samples_reference": 1}
+    # the transmittance's plain scan: the weights, K8c's two surfaces, K8d's
     assert VR.launches == {"neus_transmittance_fwd": 0, "neus_transmittance_bwd": 0,
-                           "neus_transmittance_reference": 3, "neus_importance": 0,
-                           "neus_importance_reference": 1}
+                           "neus_transmittance_reference": 4, "neus_importance": 0,
+                           "neus_importance_reference": 1, "nerf_importance": 0,
+                           "nerf_importance_reference": 1}

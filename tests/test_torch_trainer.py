@@ -209,10 +209,24 @@ def test_callbacks_read_losses_only_at_their_cadence(tmp_path):
     assert [r["iter"] for r in lines] == [5, 10] and lines[1]["train/loss_loss"] == 0.25
 
 
-def test_unported_methods_name_their_queue_item():
-    for name, item in (("nerf", 8),):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            TT.make_method(name, None, None, "white")
+@pytest.mark.parametrize("name", ["nerf", "unknown"])
+def test_make_method_builds_nerf_and_refuses_unknown_methods(name):
+    """Every method of the JAX package is ported: make_method("nerf")
+    builds the port's NeRF, and a name outside METHODS raises."""
+    from volsurfs_tpu_torch.methods.nerf import NeRF
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsNeRF
+
+    hp = HyperParamsNeRF(density_mlp_layers_dims=[8], geom_feat_size=4,
+                         rgb_mlp_layers_dims=[8], sh_degree=1)
+    if name == "unknown":
+        with pytest.raises(ValueError, match="unknown method"):
+            TT.make_method(name, hp, make_bounding_sphere(1.0), "white", device="cpu")
+        return
+    method = TT.make_method(name, hp, make_bounding_sphere(1.0), "white", device="cpu",
+                            occupancy_res=8)
+    assert isinstance(method, NeRF) and sorted(method.models) == ["density", "rgb"]
+    assert method.grid.res == 8 and method.device == torch.device("cpu")
 
 
 def test_entry_points_need_cuda_by_default(monkeypatch, tmp_path):

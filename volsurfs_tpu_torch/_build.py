@@ -67,7 +67,7 @@ _KERNEL_SIGNATURES = {
         "vs_combine_samples": (_I, [_P] * 9 + [_F] + [_P] * 5 + [_I, _I, _I, _LL, _P]),
         "vs_neus_transmittance_forward": (_I, [_P] * 5 + [_I, _LL, _P]),
         "vs_neus_transmittance_backward": (_I, [_P] * 7 + [_I, _LL, _P]),
-        "vs_neus_importance": (_I, [_P] * 5 + [_F, _P, _P, _I, _I, _I, _LL, _P]),
+        "vs_importance": (_I, [_P] * 5 + [_F, _P, _P, _I, _I, _I, _LL, _I, _P]),
     },
     "shade.cu": {
         "vs_shade_composite": (_I, [_P] * 10 + [_I, _I, _LL, _I, _P, _P, _P]),

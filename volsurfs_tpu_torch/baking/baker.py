@@ -278,7 +278,7 @@ def main(argv=None):
     from volsurfs_tpu_torch.params.params import DataParams, PathsParams
     from volsurfs_tpu_torch.training import checkpoints
     from volsurfs_tpu_torch.training.trainer import (
-        METHODS, load_shells, make_method, require_ported,
+        METHODS, load_shells, make_method,
     )
 
     parser = argparse.ArgumentParser("volsurfs_tpu_torch baker")
@@ -304,7 +304,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    require_ported(args.method)
     device = resolve_device(args.device)
 
     cfg_dir = os.path.join(os.path.dirname(__file__), "..", "..", "config")

@@ -1,10 +1,11 @@
-"""Carry parameters of a JAX ``Surf``, ``OffsetsSurfs`` or ``VolSurfs``
-over to the port.
+"""Carry parameters of a JAX ``Surf``, ``NeRF``, ``OffsetsSurfs`` or
+``VolSurfs`` over to the port.
 
 ``params_from_jax`` takes ``TrainState.params`` of the JAX method as a
 nested dict of numpy arrays ({"sdf": {"params": {...}}, "rgb": ...};
-{"sdfs": ..., "rgb_0": ..., "alpha_0": ...}) and returns one state dict per
-port module, ready for ``method.models[name].load_state_dict``. Flax
+{"density": ..., "rgb": ...}; {"sdfs": ..., "rgb_0": ..., "alpha_0": ...})
+and returns one state dict per port module, ready for
+``method.models[name].load_state_dict``. Flax
 ``Dense`` kernels are [in, out] and torch ``Linear`` weights [out, in], so
 they are transposed; hash-table rows keep their order. Flax's automatic
 submodule names become the port's attribute names (``PermutoEncoder_0`` ->

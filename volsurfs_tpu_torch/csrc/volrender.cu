@@ -1,17 +1,19 @@
 // K8: the volume-rendering kernels of the NeuS samplers and renders (surf,
-// offsets_surfs).
+// offsets_surfs) and of the nerf method's.
 //
 // Replaces, on the TPU path, volsurfs_tpu/ops/samples.py::combine
 // (:148-220) and the scans of volsurfs_tpu/ops/volume_rendering.py
 // (cumprod_one_minus_alpha_to_transmittance :36, compute_cdf :103,
-// importance_sample :137, sdf2alpha :218, neus_weights :307). XLA ran them
+// importance_sample :137, sdf2alpha :218, nerf_weights :288, neus_weights
+// :307) and the importance round of volsurfs_tpu/methods/nerf.py (:143-151,
+// the chain nerf_weights, sum_over_rays, compute_cdf, importance_sample). XLA ran them
 // there as dense [R, S] passes: two argsorts and a lax.scan keep-chain for
 // combine, associative_scan trees for the products and sums, a batched
 // searchsorted for the inverse CDF. On the card the port ran the same as
 // torch ops: combine's keep-chain alone was one Python step a slot (~800
 // launches of a surf data step), a round of importance sampling ~45.
 //
-// Three kernels, each one launch:
+// Four kernels, each one launch:
 //
 // - combine_samples_kernel (K8a), a warp a ray: the stable merge of a ray's
 //   two sample sets, the keep-chain (a sample closer than min_dist to the
@@ -52,6 +54,10 @@
 //   n inverse-CDF depths of importance_sample, a lane a target
 //   (torch.searchsorted's binary search, map_range's clamp and
 //   interpolation).
+// - nerf_importance_kernel (K8d): K8c's ray with one field, the density
+//   [R, S], whose alphas are nerf_weights' clip(1 - exp(-sigma dt), 0, 1)
+//   of each valid sample (K8c takes sdf2alpha of consecutive samples): the
+//   same template (importance_ray<true>), staging, scans and search.
 //
 // The warp-a-row layout: a lane holds its row's samples lane, lane + 32,
 // lane + 64, ... in kChunks chunks of 32 at once (a tile of kTile
@@ -842,17 +848,19 @@ __device__ __forceinline__ void stage_ray(const float *__restrict__ z,
   }
 }
 
-// staged: whether the ray's row is copied into shared memory (it is unless
-// its S x K SDFs exceed what a block may take; then they are read in place)
-extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) neus_importance_kernel(
+// One ray of K8c (kNerf false: K SDFs a sample) or K8d (kNerf true: one
+// density a sample, K = 1), a warp a ray. staged: whether the ray's row is
+// copied into shared memory (it is unless its S x K fields exceed what a
+// block may take; then they are read in place). The two differ only in the
+// alphas: sdf2alpha of consecutive SDFs at beta (0 at a ray's last valid
+// sample), or nerf_weights' clip(1 - exp(-sigma dt), 0, 1) of each valid
+// sample's density.
+template <bool kNerf>
+__device__ __forceinline__ void importance_ray(
     const float *__restrict__ z, const float *__restrict__ dt, const uint8_t *__restrict__ mask,
     const float *__restrict__ sdfs, const float *__restrict__ jitter, float beta,
     float *__restrict__ z_imp, uint8_t *__restrict__ mask_imp, int S, int K, int n,
-    long long R, int staged) {
-  extern __shared__ __align__(16) float importance_smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long r = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (r >= R) return;  // the whole warp; no block barrier below
+    long long r, int staged, float *importance_smem, int warp, int lane) {
   const int Sp = (S + 3) & ~3;
   float *cdf = importance_smem + (size_t)warp * importance_warp_floats(S, K, staged);
   float *wk = cdf + Sp;  // a surface's weights, then its CDF
@@ -877,7 +885,7 @@ extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) neus_importanc
   const int count = row_count(mr, S, lane);
 
   for (int k = 0; k < K; ++k) {
-    // 1. sdf2alpha, the transmittance scan, the weights (into wk) and their sum
+    // 1. the alphas, the transmittance scan, the weights (into wk) and their sum
     float carry = 1.0f, w_sum = 0.0f;
     for (int base = 0; base < S; base += kTile) {
       const int nch = chunks_in(S, base);
@@ -889,9 +897,14 @@ extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) neus_importanc
         const int j = base + 32 * c + lane;
         const int jj = j < S ? j : S - 1, jn = j + 1 < S ? j + 1 : S - 1;
         m[c] = j < S && mr[j] != 0;
-        const bool pair = m[c] && j + 1 < S && mr[j + 1] != 0;
-        const float al = neus_alpha(sdf[jj * K + k], sdf[jn * K + k], dtr[jj], beta);
-        a[c] = pair ? al : 0.0f;
+        if (kNerf) {
+          const float al = fminf(fmaxf(1.0f - expf(-sdf[jj] * dtr[jj]), 0.0f), 1.0f);
+          a[c] = m[c] ? al : 0.0f;
+        } else {
+          const bool pair = m[c] && j + 1 < S && mr[j + 1] != 0;
+          const float al = neus_alpha(sdf[jj * K + k], sdf[jn * K + k], dtr[jj], beta);
+          a[c] = pair ? al : 0.0f;
+        }
         x[c] = m[c] ? (1.0f - a[c]) + 1e-6f : 1.0f;
       }
       warp_scan_products(x, nch, lane);
@@ -975,6 +988,23 @@ extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) neus_importanc
   }
 }
 
+#define IMPORTANCE_KERNEL(name, nerf)                                                         \
+  extern "C" __global__ void __launch_bounds__(32 * kWarpsPerBlock) name(                      \
+      const float *__restrict__ z, const float *__restrict__ dt,                               \
+      const uint8_t *__restrict__ mask, const float *__restrict__ fields,                      \
+      const float *__restrict__ jitter, float beta, float *__restrict__ z_imp,                 \
+      uint8_t *__restrict__ mask_imp, int S, int K, int n, long long R, int staged) {          \
+    extern __shared__ __align__(16) float importance_smem[];                                   \
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;                                \
+    const long long r = (long long)blockIdx.x * (blockDim.x >> 5) + warp;                      \
+    if (r >= R) return; /* the whole warp; no block barrier below */                           \
+    importance_ray<nerf>(z, dt, mask, fields, jitter, beta, z_imp, mask_imp, S, K, n, r,       \
+                         staged, importance_smem, warp, lane);                                 \
+  }
+
+IMPORTANCE_KERNEL(neus_importance_kernel, false)
+IMPORTANCE_KERNEL(nerf_importance_kernel, true)
+
 // A warp a ray, kWarpsPerBlock rays a block while their shared memory fits
 // the static 48 KB, fewer for long rows; one ray's row past 48 KB (S > 3,400
 // slots) raises the kernel's limit.
@@ -1039,12 +1069,16 @@ extern "C" int vs_neus_transmittance_backward(const void *alpha, const void *mas
 // the static 48 KB, fewer for long rows; one ray's staged row past 48 KB
 // raises the kernel's limit, and past the card's most (227 KB on the
 // H100: S = 4,096 with K > 9) its SDFs stay in device memory.
-extern "C" int vs_neus_importance(const void *z, const void *dt, const void *mask,
-                                  const void *sdfs, const void *jitter, float beta, void *z_imp,
-                                  void *mask_imp, int S, int K, int n, long long R,
-                                  void *stream) {
+// K8c (nerf 0: K SDFs a sample, beta) or K8d (nerf 1: one density a
+// sample, K = 1, beta unused)
+extern "C" int vs_importance(const void *z, const void *dt, const void *mask, const void *fields,
+                             const void *jitter, float beta, void *z_imp, void *mask_imp, int S,
+                             int K, int n, long long R, int nerf, void *stream) {
+  typedef void (*Kernel)(const float *, const float *, const uint8_t *, const float *,
+                         const float *, float, float *, uint8_t *, int, int, int, long long, int);
+  static const Kernel kernels[2] = {neus_importance_kernel, nerf_importance_kernel};
+  static size_t allowed[2] = {};
   static int optin = 0;
-  static size_t allowed = 0;
   if (R > 0) {
     if (optin == 0) {
       int dev = 0;
@@ -1054,17 +1088,18 @@ extern "C" int vs_neus_importance(const void *z, const void *dt, const void *mas
       }
       if (err != cudaSuccess) return (int)err;
     }
+    const Kernel kernel = kernels[nerf != 0];
     const int staged =
         (size_t)importance_warp_floats(S, K, true) * sizeof(float) <= (size_t)optin;
     const size_t per_warp = (size_t)importance_warp_floats(S, K, staged) * sizeof(float);
     int warps = kWarpsPerBlock;
     while (warps > 1 && warps * per_warp > kSmemLimit) warps >>= 1;
     const size_t smem = warps * per_warp;
-    const cudaError_t err = allow_smem((const void *)neus_importance_kernel, smem, allowed);
+    const cudaError_t err = allow_smem((const void *)kernel, smem, allowed[nerf != 0]);
     if (err != cudaSuccess) return (int)err;
     const unsigned blocks = (unsigned)((R + warps - 1) / warps);
-    neus_importance_kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
-        (const float *)z, (const float *)dt, (const uint8_t *)mask, (const float *)sdfs,
+    kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+        (const float *)z, (const float *)dt, (const uint8_t *)mask, (const float *)fields,
         (const float *)jitter, beta, (float *)z_imp, (uint8_t *)mask_imp, S, K, n, R, staged);
   }
   return (int)cudaGetLastError();

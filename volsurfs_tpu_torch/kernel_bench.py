@@ -28,7 +28,9 @@
   samples; inputs from ``k8_cases``) and the surf eval chunk's (2,048 rays,
   K = 1): ``combine`` at each of a step's three merges, the transmittance
   scan forward and backward on [K x R, 96] rows and each round of
-  ``neus_importance``.
+  ``neus_importance``; and K8d ``nerf_importance`` (the nerf step's
+  round: 64 samples, 32 new depths; inputs from ``k8d_case``) at 512 and
+  2,048 rays, where the tree has it.
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 shape) with ``ms`` (median of CUDA-event timings of one call) and
@@ -388,6 +390,32 @@ def k8_cases(device, K, R=None, seed=0):
     }
 
 
+# the nerf step's importance round (config/nerf/base.cfg): 64 samples a ray
+# in the occupied space, 32 new depths; chip_smoke.py passes the rays of
+# its path's last steps and a render chunk's (K8_EVAL_RAYS)
+K8D_UNIFORM, K8D_IMP = 64, 32
+
+
+def k8d_case(device, R, S=K8D_UNIFORM, n=K8D_IMP, seed=0, count=None):
+    """The inputs of K8d (the nerf importance round) at R rays of S samples:
+    (samples, density [R, S], n, jitter [R, n]). The samples as
+    k8_samples draws them (count [R, 1] if given); the density a bump of
+    height 50 around a surface at a random depth a ray, over a floor in
+    [0, 0.5), with 10% of the samples at 0 and every 7th ray opaque (1e4)
+    over four samples, where the transmittance underflows."""
+    rng = np.random.default_rng(seed)
+    samples = k8_samples(device, rng, R, S, count)
+    z = samples.z.cpu().numpy().astype(np.float64)
+    surface = rng.uniform(1.5, 2.5, (R, 1))
+    density = 50.0 * np.exp(-np.minimum(((z - surface) / 0.05) ** 2, 80.0))
+    density += rng.uniform(0.0, 0.5, (R, S))
+    density[rng.uniform(0, 1, (R, S)) < 0.1] = 0.0
+    density[::7, S // 4:S // 4 + 4] = 1e4
+    jitter = rng.uniform(-0.5, 0.5, (R, n)).astype(np.float32)
+    return (samples, torch.from_numpy(density.astype(np.float32)).to(device), n,
+            torch.from_numpy(jitter).to(device))
+
+
 def k8_check(kind, got, ref):
     """K8's kernel outputs (got) against its plain version's (ref), as
     tuples of tensors in the same order, by the tolerance of each kind:
@@ -449,6 +477,10 @@ def bench_k8(device, smi):
         for rnd, args in cases["importance"].items():
             _bench_line("k8c_importance", lambda: VR.neus_importance(*args), smi, surfaces=K,
                         rays=R, samples=int(rnd))
+    for R in (K8_RAYS[1], K8_EVAL_RAYS) if hasattr(VR, "nerf_importance") else ():
+        args = k8d_case(device, R)
+        _bench_line("k8d_nerf_importance", lambda: VR.nerf_importance(*args), smi, rays=R,
+                    samples=K8D_UNIFORM, targets=K8D_IMP)
 
 
 def _bench_line(bench, fn, smi, **fields):

@@ -72,7 +72,9 @@ def _next_pow2(n: int) -> int:
 def c2f_window(t, nr_levels: int, device=None):
     """Coarse-to-fine window [L]: level l opens as t * L passes l, with a
     cosine ease (t a float32 scalar in [0, 1])."""
-    alpha = torch.tensor(float(t), dtype=torch.float32, device=device) * nr_levels
+    # t L rounded to float32 on the host: a host tensor copied to the device
+    # would wait for the device's queue to drain at every lookup
+    alpha = float(np.float32(t) * np.float32(nr_levels))
     idx = torch.arange(nr_levels, dtype=torch.float32, device=device)
     w = torch.clamp(alpha - idx, 0.0, 1.0)
     return 0.5 * (1.0 - torch.cos(math.pi * w))
@@ -150,10 +152,15 @@ class PermutoEncoder(nn.Module):
 
     def window(self, iter_nr=None):
         """The coarse-to-fine window of iteration iter_nr, repeated for the
-        2 features of a level: [2L]."""
+        2 features of a level: [2L]. The last one made is kept: a step and
+        an occupancy refresh look up at one iteration many times."""
         t = 1.0 if iter_nr is None else map_range_val(
             np.float32(iter_nr), 0.0, float(self.nr_iters_for_c2f), 0.3, 1.0)
-        return torch.repeat_interleave(c2f_window(t, self.nr_levels, self.table.device), 2)
+        key = (float(t), self.table.device)
+        if getattr(self, "_window", (None,))[0] != key:
+            self._window = (key, torch.repeat_interleave(
+                c2f_window(t, self.nr_levels, self.table.device), 2))
+        return self._window[1]
 
     def forward(self, points, iter_nr=None, with_grads: bool = False):
         batch_shape = points.shape[:-1]

@@ -1,7 +1,7 @@
-"""Neural fields of the surf and offsets_surfs methods: ``SDF``,
-``OffsetsSDF``, ``RGB`` and ``ColorSH`` (counterpart of
-volsurfs_tpu/models/fields.py:24-241 and :273-375; RGB's ``LipshitzMLP``
-and ``NerfHash`` wait for their ROADMAP.md Queue 1 items).
+"""Neural fields of the surf, offsets_surfs and nerf methods: ``SDF``,
+``OffsetsSDF``, ``Density``, ``RGB`` and ``ColorSH`` (counterpart of
+volsurfs_tpu/models/fields.py:24-375; RGB's ``LipshitzMLP`` and
+``NerfHash`` wait for their ROADMAP.md Queue 1 item).
 
 Submodules keep the flax names' order: ``encoder`` is flax's
 ``PermutoEncoder_0`` and ``mlp`` its ``MLP_0`` (``convert.py``);
@@ -166,6 +166,29 @@ class OffsetsSDF(nn.Module):
         if g is None:
             return sdfs, offsets, geom_feats
         return sdfs, offsets, geom_feats, torch.movedim(g, 0, -1)
+
+
+class Density(nn.Module):
+    """Position encoder + MLP -> (softplus density [..., 1], geom_feats
+    [..., G]): the nerf method's geometry, the SDF's layers with a softplus
+    on the first output."""
+
+    def __init__(self, mlp_layers_dims: Sequence[int] = (32, 32, 32),
+                 encoding_type: str = "permutohash", geom_feat_size: int = 32,
+                 nr_iters_for_c2f: int = 0, bb_sides: float = 2.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.geom_feat_size = geom_feat_size
+        self.encoder = get_encoder(encoding_type, generator=generator, input_dim=3,
+                                   nr_levels=24, nr_iters_for_c2f=nr_iters_for_c2f,
+                                   bb_sides=bb_sides)
+        self.mlp = MLP(self.encoder.output_dim, tuple(mlp_layers_dims) + (1 + geom_feat_size,),
+                       last_layer_linear=True, generator=generator)
+
+    def forward(self, points, iter_nr=None):
+        feats, _ = self.encoder(points, iter_nr)
+        pred = self.mlp(feats)
+        return _softplus(pred[..., 0:1]), pred[..., 1:] if self.geom_feat_size > 0 else None
 
 
 class RGB(nn.Module):

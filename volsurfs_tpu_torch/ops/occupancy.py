@@ -29,14 +29,18 @@ def _norm3(x):
 
 @dataclasses.dataclass
 class OccupancyGrid:
-    values: torch.Tensor  # [res, res, res] float32 (|sdf| at the voxel centres)
+    values: torch.Tensor  # [res, res, res] float32 (|sdf| or density at the voxels)
     occupancy: torch.Tensor  # [res, res, res] bool
     roi: torch.Tensor  # [res, res, res] bool
     extent: tuple  # world-space side lengths (float32 values)
     occupied: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # the extent on the grid's device, copied there once a grid: a copy
+    # from the host waits for the device's queue to drain
+    _extent: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         self.occupied = (self.occupancy & self.roi).to(torch.uint8).contiguous()
+        self._extent = torch.tensor(self.extent, dtype=torch.float32, device=self.device)
 
     @property
     def res(self) -> int:
@@ -47,7 +51,7 @@ class OccupancyGrid:
         return self.values.device
 
     def extent_tensor(self):
-        return torch.tensor(self.extent, dtype=torch.float32, device=self.device)
+        return self._extent
 
     def voxel_size(self):
         return self.extent_tensor() / self.res
@@ -61,6 +65,19 @@ class OccupancyGrid:
         lin = torch.arange(start, stop, device=self.device)
         ijk = torch.stack([lin // (res * res), (lin // res) % res, lin % res], dim=-1)
         return ((ijk.float() + 0.5) / res - 0.5) * self.extent_tensor()
+
+    def get_grid_samples(self, start: int = 0, stop: int | None = None,
+                         generator: torch.Generator | None = None):
+        """The voxel centres start..stop-1 (``voxel_centers``), each moved by
+        a uniform draw in [-0.5, 0.5) times the voxel size from generator
+        ([stop - start, 3], three draws a point), or unmoved without one:
+        the points at which the nerf method's refresh evaluates its
+        density. A caller draws the grid in chunks, in order."""
+        centers = self.voxel_centers(start, stop)
+        if generator is None:
+            return centers
+        u = torch.rand(centers.shape, generator=generator, device=self.device)
+        return centers + (u - 0.5) * self.voxel_size()
 
     def pos_to_voxel_idx(self, points):
         """[N, 3] world positions -> ([N, 3] int32 voxel coords clamped into
@@ -87,6 +104,10 @@ class OccupancyGrid:
         in the order of ``voxel_centers``."""
         new_values = new_values.reshape(self.values.shape)
         return dataclasses.replace(self, values=torch.maximum(new_values, self.values * decay))
+
+    def update_occupancy_with_density(self, occupancy_thresh: float = 1e-4):
+        """Occupied iff the voxel's value (a density) exceeds the threshold."""
+        return dataclasses.replace(self, occupancy=self.values > occupancy_thresh)
 
     def update_occupancy_with_sdf(self, logistic_beta, occupancy_thresh: float = 1e-4):
         """Occupied iff the logistic density of the smallest |sdf| the voxel

@@ -8,10 +8,21 @@ import dataclasses
 import torch
 
 
+def _on(cache: dict, t: torch.Tensor, device) -> torch.Tensor:
+    """t on device, copied there once: a copy from the host waits for the
+    device's queue to drain, and the primitives are used at every step."""
+    device = torch.device(device)
+    if device not in cache:
+        cache[device] = t.to(device)
+    return cache[device]
+
+
 @dataclasses.dataclass
 class BoundingSphere:
     center: torch.Tensor  # [3]
     radius: float
+    _centers: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                       compare=False)
 
     def get_radius(self) -> float:
         return self.radius
@@ -21,7 +32,7 @@ class BoundingSphere:
 
     def intersect(self, rays_o, rays_d):
         """Ray-sphere intersection. Rays starting inside get t_near = 0."""
-        oc = rays_o - self.center.to(rays_o.device)[None, :]
+        oc = rays_o - _on(self._centers, self.center, rays_o.device)[None, :]
         b = torch.sum(oc * rays_d, dim=-1)
         c = torch.sum(oc * oc, dim=-1) - self.radius**2
         disc = b * b - c
@@ -41,7 +52,7 @@ class BoundingSphere:
         and uniform draws [N, 1] in [0, 1) (the radius, as u^(1/3))."""
         dirs = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
         r = self.radius * uniforms ** (1.0 / 3.0)
-        return self.center.to(normals.device)[None, :] + dirs * r
+        return _on(self._centers, self.center, normals.device)[None, :] + dirs * r
 
     def get_random_points_inside(self, generator: torch.Generator, nr_points: int):
         """nr_points uniform points inside the sphere, on the generator's
@@ -55,6 +66,13 @@ class BoundingSphere:
 class BoundingBox:
     center: torch.Tensor  # [3]
     sides: torch.Tensor  # [3] full side lengths
+    _centers: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                       compare=False)
+    _sides: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
+
+    def _center_sides(self, device):
+        return _on(self._centers, self.center, device), _on(self._sides, self.sides, device)
 
     def get_radius(self) -> float:
         """Radius of the circumscribed sphere."""
@@ -65,8 +83,9 @@ class BoundingBox:
 
     def intersect(self, rays_o, rays_d):
         """Slab test; rays starting inside get t_near = 0."""
-        half = 0.5 * self.sides.to(rays_o.device)[None, :]
-        center = self.center.to(rays_o.device)[None, :]
+        center, sides = self._center_sides(rays_o.device)
+        half = 0.5 * sides[None, :]
+        center = center[None, :]
         lo, hi = center - half, center + half
         inv_d = 1.0 / torch.where(torch.abs(rays_d) < 1e-12, 1e-12, rays_d)
         t_lo = (lo - rays_o) * inv_d
@@ -82,7 +101,8 @@ class BoundingBox:
 
     def get_random_points_inside(self, generator: torch.Generator, nr_points: int):
         u = torch.rand(nr_points, 3, generator=generator, device=generator.device) - 0.5
-        return self.center.to(u.device)[None, :] + u * self.sides.to(u.device)[None, :]
+        center, sides = self._center_sides(u.device)
+        return center[None, :] + u * sides[None, :]
 
 
 def make_bounding_box(sides, center=(0.0, 0.0, 0.0)) -> BoundingBox:

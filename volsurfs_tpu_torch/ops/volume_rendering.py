@@ -15,7 +15,12 @@ their plain versions, the torch ops below, on a CPU tensor:
 - ``neus_importance`` (K8c): from the SDFs at the samples to the new
   depths of one round of importance sampling (alphas, scan, normalised
   weights, CDF, its average over the surfaces, inverse-CDF placement), a
-  warp a ray with its row in shared memory, without gradient.
+  warp a ray with its row in shared memory, without gradient;
+- ``nerf_importance`` (K8d): the same round from the density at the
+  samples (the nerf method's, with ``nerf_weights``' alphas), K8c's kernel
+  template with one field.
+
+``nerf_weights`` runs its transmittance scan through K8b.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from volsurfs_tpu_torch.ops.samples import RaySamples, batched_searchsorted
 # launch counts: the CUDA kernels' and the plain versions'
 launches = {"neus_transmittance_fwd": 0, "neus_transmittance_bwd": 0,
             "neus_transmittance_reference": 0, "neus_importance": 0,
-            "neus_importance_reference": 0}
+            "neus_importance_reference": 0, "nerf_importance": 0,
+            "nerf_importance_reference": 0}
 
 
 def _gather(x, idx):
@@ -243,9 +249,9 @@ def neus_weights(samples: RaySamples, alpha):
     return neus_transmittance(alpha, samples.mask)
 
 
-def _weights_cdf(samples: RaySamples, sdf, logistic_beta):
-    """The CDF of the normalised NeuS weights of one surface's SDF [R, S]."""
-    alpha = sdf2alpha(samples, sdf, logistic_beta)
+def _weights_cdf(samples: RaySamples, alpha):
+    """The CDF of the weights of alpha [R, S] (the transmittance scan with
+    its 1e-6 bias), normalised by their sum (at least 1e-6)."""
     w, _, _ = neus_transmittance_reference(alpha, samples.mask)
     _, w_sum = sum_over_rays(w, samples.mask)
     return compute_cdf(w / torch.clamp(w_sum, min=1e-6), samples.mask)
@@ -257,7 +263,8 @@ def neus_cdf(samples: RaySamples, sdfs, logistic_beta):
     if sdfs.ndim == 2:
         sdfs = sdfs[..., None]
     K = sdfs.shape[-1]
-    cdfs = [_weights_cdf(samples, sdfs[..., k], logistic_beta) for k in range(K)]
+    cdfs = [_weights_cdf(samples, sdf2alpha(samples, sdfs[..., k], logistic_beta))
+            for k in range(K)]
     return cdfs[0] if K == 1 else torch.sum(torch.stack(cdfs, dim=0), dim=0) / K
 
 
@@ -280,30 +287,87 @@ def neus_importance(samples: RaySamples, sdfs, logistic_beta, nr_importance_samp
     if not samples.z.is_cuda:
         return neus_importance_reference(samples, sdfs, logistic_beta, nr_importance_samples,
                                          jitter)
+    fields = sdfs[..., None] if sdfs.ndim == 2 else sdfs
+    return _importance_kernel("neus_importance", samples, fields, logistic_beta,
+                              nr_importance_samples, jitter)
+
+
+def _importance_kernel(name, samples: RaySamples, fields, beta, n: int, jitter) -> RaySamples:
+    """K8c (name "neus_importance": the SDFs fields [R, S, K] at beta) or
+    K8d ("nerf_importance": the density [R, S, 1]) on the card, one launch:
+    n new depths a ray (jitter [R, n] or None). No gradient."""
     dev = samples.z.device
     R, S = samples.z.shape
-    n = nr_importance_samples
-    sdfs = (sdfs[..., None] if sdfs.ndim == 2 else sdfs).detach().contiguous()
-    K = sdfs.shape[-1]
+    fields = fields.detach().contiguous()
+    K = fields.shape[-1]
     z, dt, mask = (t.contiguous() for t in (samples.z, samples.dt, samples.mask))
     checks = [("z", z, torch.float32, (R, S)), ("dt", dt, torch.float32, (R, S)),
-              ("mask", mask, torch.bool, (R, S)), ("sdfs", sdfs, torch.float32, (R, S, K))]
+              ("mask", mask, torch.bool, (R, S)), ("fields", fields, torch.float32, (R, S, K))]
     if jitter is not None:
         jitter = jitter.contiguous()
         checks.append(("jitter", jitter, torch.float32, (R, n)))
-    for name, t, dtype, shape in checks:
-        _build.check_tensor(name, t, dtype, shape, dev)
+    for arg, t, dtype, shape in checks:
+        _build.check_tensor(arg, t, dtype, shape, dev)
     if not 2 <= S <= 4096:
-        raise ValueError(f"neus_importance: 2 to 4096 samples a ray (got {S})")
+        raise ValueError(f"{name}: 2 to 4096 samples a ray (got {S})")
     z_imp = torch.empty(R, n, dtype=torch.float32, device=dev)
     mask_imp = torch.empty(R, n, dtype=torch.bool, device=dev)
-    status = _build.kernels().vs_neus_importance(
-        z.data_ptr(), dt.data_ptr(), mask.data_ptr(), sdfs.data_ptr(),
-        None if jitter is None else jitter.data_ptr(), float(logistic_beta), z_imp.data_ptr(),
-        mask_imp.data_ptr(), S, K, n, R, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "neus_importance")
-    launches["neus_importance"] += 1
+    status = _build.kernels().vs_importance(
+        z.data_ptr(), dt.data_ptr(), mask.data_ptr(), fields.data_ptr(),
+        None if jitter is None else jitter.data_ptr(), float(beta), z_imp.data_ptr(),
+        mask_imp.data_ptr(), S, K, n, R, int(name == "nerf_importance"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, name)
+    launches[name] += 1
     return RaySamples(z=z_imp, dt=torch.zeros_like(z_imp), mask=mask_imp, rays_o=samples.rays_o,
                       rays_d=samples.rays_d, t_near=samples.t_near, t_far=samples.t_far,
                       max_dt=samples.max_dt)
 
+
+def nerf_alpha(samples: RaySamples, densities):
+    """clip(1 - exp(-sigma dt), 0, 1) of each valid sample, 0 elsewhere
+    (densities [R, S] or [R, S, 1])."""
+    if densities.ndim == 3:
+        densities = densities[..., 0]
+    # maximum and minimum, not clamp: at a tie (a density of 0) their
+    # gradient is half, as jnp.clip's
+    bounds = torch.zeros((), device=densities.device), torch.ones((), device=densities.device)
+    alpha = torch.minimum(torch.maximum(1.0 - torch.exp(-densities * samples.dt), bounds[0]),
+                          bounds[1])
+    return torch.where(samples.mask, alpha, 0.0)
+
+
+def nerf_weights(samples: RaySamples, densities):
+    """(weights alpha T [R, S], bg_transmittance [R, 1]) of the densities
+    at the samples: ``nerf_alpha``, then the transmittance scan with the
+    1e-6 bias, which is NeuS' (K8b on the card). Differentiable in the
+    densities."""
+    weights, _, bg = neus_transmittance(nerf_alpha(samples, densities), samples.mask)
+    return weights, bg
+
+
+def nerf_cdf(samples: RaySamples, densities):
+    """The CDF [R, S] of the density's NeRF weights, normalised by their sum
+    (at least 1e-6)."""
+    return _weights_cdf(samples, nerf_alpha(samples, densities))
+
+
+def nerf_importance_reference(samples: RaySamples, densities, nr_importance_samples: int,
+                              jitter=None) -> RaySamples:
+    """Plain version of ``nerf_importance``."""
+    launches["nerf_importance_reference"] += 1
+    return importance_sample(samples, nerf_cdf(samples, densities), nr_importance_samples,
+                             jitter)
+
+
+def nerf_importance(samples: RaySamples, densities, nr_importance_samples: int,
+                    jitter=None) -> RaySamples:
+    """The nerf method's round of importance sampling: the NeRF weights of
+    the densities [R, S] (or [R, S, 1]) at the samples, normalised by their
+    sum (at least 1e-6), their CDF (``compute_cdf``), then n new depths by
+    ``importance_sample`` (jitter [R, n] or None). No gradient."""
+    if not samples.z.is_cuda:
+        return nerf_importance_reference(samples, densities, nr_importance_samples, jitter)
+    fields = densities if densities.ndim == 3 else densities[..., None]
+    return _importance_kernel("nerf_importance", samples, fields, 0.0, nr_importance_samples,
+                              jitter)

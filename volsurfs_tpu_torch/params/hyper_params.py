@@ -1,8 +1,8 @@
 """Hyper-parameters, loadable from the hjson configs under ``config/``.
 
 Counterpart of volsurfs_tpu/params/hyper_params.py, with the base class and
-the surf, offsets_surfs and volsurfs methods' classes (the methods ported so
-far), including their validation and coupling rules. Defaults are the
+the surf, nerf, offsets_surfs and volsurfs methods' classes, including their
+validation and coupling rules. Defaults are the
 reference's defaults; any field present under ``hyper_params`` in a config
 file overrides the default.
 """
@@ -157,6 +157,18 @@ class HyperParamsOffsetsSuRFs(HyperParamsSuRF):
 
 
 @dataclasses.dataclass
+class HyperParamsNeRF(HyperParams):
+    # density (reference hyper_params.py:351-378)
+    density_mlp_layers_dims: List[int] = dataclasses.field(
+        default_factory=lambda: [32, 32]
+    )
+    density_mlp_output_dims: int = 1
+    density_encoding_type: str = "permutohash"
+    density_nr_iters_for_c2f: int = 10000
+    sparsity_weight: float = 0.0
+
+
+@dataclasses.dataclass
 class HyperParamsVolSurfs(HyperParams):
     # mesh-shell appearance (reference hyper_params.py:381-479)
     meshes_indices: Optional[List[int]] = None
@@ -196,8 +208,9 @@ class HyperParamsVolSurfs(HyperParams):
 
 def get_method_hyper_params(method_name: str, cfg_path: str):
     """Hyper-parameters of a method from a config file."""
-    cls = {"surf": HyperParamsSuRF, "offsets_surfs": HyperParamsOffsetsSuRFs,
+    cls = {"surf": HyperParamsSuRF, "nerf": HyperParamsNeRF,
+           "offsets_surfs": HyperParamsOffsetsSuRFs,
            "volsurfs": HyperParamsVolSurfs}.get(method_name)
     if cls is None:
-        raise ValueError(f"method {method_name!r} is not ported to torch yet")
+        raise ValueError(f"unknown method name {method_name}")
     return cls.from_cfg(cfg_path)

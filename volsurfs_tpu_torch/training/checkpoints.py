@@ -1,8 +1,8 @@
-"""Checkpoints of a ``Surf``, ``OffsetsSurfs`` or ``VolSurfs`` run
+"""Checkpoints of a ``Surf``, ``NeRF``, ``OffsetsSurfs`` or ``VolSurfs`` run
 (counterpart of volsurfs_tpu/training/checkpoints.py), in the JAX package's
 layout: ``<ckpt_dir>/<iter:07d>/models/`` holds one ``{name}.pt`` state
-dict per module (``sdf``, ``rgb``; ``sdfs``, ``rgb_0``, ``alpha_0``;
-``rgb_i``, ``alpha_i``) and ``train_state.pt``
+dict per module (``sdf``, ``rgb``; ``density``, ``rgb``; ``sdfs``,
+``rgb_0``, ``alpha_0``; ``rgb_i``, ``alpha_i``) and ``train_state.pt``
 with the optimizer, the learning-rate scheduler, ``iter_nr``, the state of
 the trainer's batch generator and, where the method has them, its own
 generator's state and its occupancy grid (values, occupancy, ROI,
@@ -222,7 +222,7 @@ def read_flax_msgpack(path: str):
 
 
 def load_jax_params(ckpt_dir: str, method, iter_nr: int | None = None):
-    """Load the parameters of a JAX surf, offsets_surfs or volsurfs checkpoint
+    """Load the parameters of a JAX surf, nerf, offsets_surfs or volsurfs checkpoint
     (``<ckpt_dir>/<iter:07d>/models/{name}.msgpack`` for each of the
     method's modules; the latest iteration if iter_nr is None) into
     method's modules through ``convert.params_from_jax``. Only parameters

@@ -11,12 +11,12 @@ method's device from ``self.generator``, a ``torch.Generator`` seeded with
 Losses stay on the device: the loop reads them every ``log_every`` steps,
 and the callbacks at their own cadences.
 
-``surf``, ``offsets_surfs`` and ``volsurfs`` are ported; nerf raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item. A method with
-an occupancy grid (surf, offsets_surfs) has it refreshed every
+All four methods of the JAX package are ported: ``surf``, ``nerf``,
+``offsets_surfs`` and ``volsurfs``. A method with an occupancy grid (surf,
+nerf, offsets_surfs) has it refreshed every
 ``update_occupancy_every`` steps, before the step, as in JAX. As in JAX, the
 dynamic ray count acts only when the losses carry ``nr_samples_total``
-(surf's and offsets_surfs' data steps do, volsurfs' do not). The CLI's
+(surf's, nerf's and offsets_surfs' data steps do, volsurfs' do not). The CLI's
 ``--models_path`` takes a surf run's models directory into offsets_surfs:
 its ``sdf.pt`` goes into the shared encoder and the main head
 (``OffsetsSurfs.load_main_sdf``). Not ported: the TPU compile-retry wrapper (nothing is compiled here),
@@ -44,28 +44,22 @@ from volsurfs_tpu_torch.params.hyper_params import get_method_hyper_params
 from volsurfs_tpu_torch.training import checkpoints
 from volsurfs_tpu_torch.utils.evaluation import PerSceneEvaluator
 
-# methods of the JAX package that the port does not have yet, and the
-# ROADMAP.md Queue 1 item that ports each
-NOT_PORTED = {"nerf": 8}
 METHODS = ("surf", "nerf", "offsets_surfs", "volsurfs")
-
-
-def require_ported(method_name: str):
-    if method_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method_name!r} is not ported to torch yet "
-            f"(ROADMAP.md Queue 1 item {NOT_PORTED[method_name]})")
-    if method_name not in ("surf", "offsets_surfs", "volsurfs"):
-        raise ValueError(f"unknown method {method_name}")
 
 
 def make_method(method_name, hp, bounding_primitive, bg_color, seed: int = 0,
                 device="cuda", occupancy_res: int = 256, **method_kwargs):
-    require_ported(method_name)
+    if method_name not in METHODS:
+        raise ValueError(f"unknown method {method_name}")
     if method_name == "surf":
         from volsurfs_tpu_torch.methods.surf import Surf
 
         return Surf(hp, bounding_primitive, bg_color=bg_color, occupancy_res=occupancy_res,
+                    device=device, seed=seed, **method_kwargs)
+    if method_name == "nerf":
+        from volsurfs_tpu_torch.methods.nerf import NeRF
+
+        return NeRF(hp, bounding_primitive, bg_color=bg_color, occupancy_res=occupancy_res,
                     device=device, seed=seed, **method_kwargs)
     if method_name == "offsets_surfs":
         from volsurfs_tpu_torch.methods.offsets_surfs import OffsetsSurfs
@@ -306,7 +300,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    require_ported(args.method)
     if args.data_parallel:
         raise NotImplementedError("--data_parallel is not ported (ROADMAP.md Queue 1 item 9)")
     device = resolve_device(args.device)

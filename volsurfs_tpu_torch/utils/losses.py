@@ -13,6 +13,11 @@ def loss_l1(gt, pred, mask=None):
     return torch.mean(torch.abs(gt - pred))
 
 
+def sparsity_loss(densities, lambda_sparsity: float = 1.0):
+    loss = torch.mean(1.0 - torch.exp(-lambda_sparsity * densities))
+    return torch.clamp(loss, min=0.0)
+
+
 def eikonal_loss(sdf_gradients, distance_scale: float = 1.0):
     return torch.mean((safe_norm(sdf_gradients, dim=-1) - distance_scale) ** 2)
 
