@@ -166,13 +166,50 @@ width of config/nerf/base.cfg:
 23. kernel K8d (csrc/volrender.cu: the nerf importance round) against its
    plain version at the nerf step's shape (the rays of the path's last
    steps, 64 samples, 32 new depths) and a 2,048-ray render chunk's
-   (kernel_bench.k8d_case), with times, the bound and registers.
+   (kernel_bench.k8d_case), with times, the bound and registers;
+24. the surf stage with the trained background (the main path
+   surf_bg_stage): config/surf/base.cfg at full width, phase 14's cut,
+   with bg_color "trained" (NerfHash: a 24-level permutohedral table over
+   the contracted space, 64-64-64-65 and 64-64-3 MLPs, 64 background
+   samples a ray: kernel K10) through Trainer.train: the median step, the
+   losses and the refreshes;
+25. its checkpoint (bg included) loaded into a fresh Surf, whose render of
+   test camera 0 must equal the trained one's bit for bit; eval_split of
+   the test split (psnr > 16 dB, the surf bar); the background field's mean
+   |rgb_bg - 1| over test camera 0's background pixels (< BG_WHITE_BAR:
+   the scene's background is white);
+26. the sphere-traced render of test camera 0 (make_render_fn(
+   sphere_traced=True): kernel K9 a march step, the trained grid):
+   psnr > 16 dB, the share of pixels whose hit differs from the volume
+   render's weights_sum > 0.5, the steps and the seconds a frame; then,
+   as a witness without a bar, the same trace capped at 100 steps;
+28. 3 profiled data steps beside the surf_stage path's; then the path's
+   launches (phases 24-26 and 28: K6 forward and backward, K7, K8a, K8b
+   forward and backward, K8c, K9 and K10 each > 0, K1 0, no plain
+   version);
+27. after the path's launches were read: K10 against its plain version at
+   kernel_bench.K10_CASES' shapes (512 x 64, 2,048 x 64, 65,536 x 64 and
+   volsurfs' 512 x 32) bit for bit; K9 over a 24-step march of test camera
+   0's 65,536 rays, each step given the same SDF, at an analytic sphere
+   (without and with a 256^3 grid) and at the trained field and grid, bit
+   for bit; K6's forward at the background's contracted points, bit for
+   bit; the trace's loop with its host check against a fixed 24 steps;
+   times, bounds and registers;
+29. the volsurfs stage at config/volsurfs/base_5.cfg's width on the
+   committed sphere-scene shells with the trained background, carried
+   from phase 24's model by pipeline._carry_bg (the main path
+   volsurfs_bg_stage, counts reset before it): 60 steps (as phase 5), then
+   eval_split (psnr > 14 dB, the pipeline's volsurfs bar); its launches
+   (K1, K2, K6 forward and backward, K8b forward and backward and K10 each
+   > 0, no plain version; no K4: the neural render shades no baked
+   texture).
 
 The main paths, each with the launch counts set to 0 before it and read
 after it: train_render (phases 5-6), volsurfs_stage (phases 5-7a: it
 begins with train_render, from one reset), baked_render (phases 9-10),
 surf_stage (phases 14-15), offsets_stage (phases 16-17),
-pipeline_stage (phase 20) and nerf_stage (phases 21-22).
+pipeline_stage (phase 20), nerf_stage (phases 21-22), surf_bg_stage
+(phases 24-26 and 28) and volsurfs_bg_stage (phase 29).
 
 Each phase prints one JSON line. The line before the last is the kernel
 table; the last line is {"ok": true, "device": {...}}. Any failure raises
@@ -298,7 +335,10 @@ def emit(phase, **fields):
 
 
 # kernel families whose device time and launches a profile reports apart
-WATCHED = ("permuto", "scatter_add", "Memset", "combine_samples", "neus_", "nerf_")
+WATCHED = ("permuto", "scatter_add", "Memset", "combine_samples", "neus_", "nerf_",
+           "bg_samples", "sphere_trace")
+# the profiles of the main paths' train steps, by path, for comparisons
+PROFILES = {}
 
 
 def profiled(fn, reps, top=5):
@@ -332,10 +372,11 @@ def profiled(fn, reps, top=5):
 
 def _launch_counts():
     from volsurfs_tpu_torch.ops import (bvh, permuto, samplers, samples, scatter_add, shade,
-                                        volume_rendering)
+                                        sphere_tracing, volume_rendering)
 
     return (scatter_add.launches, bvh.launches, shade.launches, permuto.launches,
-            samplers.launches, samples.launches, volume_rendering.launches)
+            samplers.launches, samples.launches, volume_rendering.launches,
+            sphere_tracing.launches)
 
 
 def reset_counts():
@@ -510,9 +551,11 @@ def smoke_hyper_params():
     return hp
 
 
-def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS, prefix=""):
+def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS, prefix="", bg_source=None):
     """steps train steps through Trainer.train; returns the trainer. Its
-    lines' phases begin with prefix."""
+    lines' phases begin with prefix. With bg_source (a method with a trained
+    background) the stage trains one too, from bg_source's, carried by
+    pipeline._carry_bg."""
     from volsurfs_tpu_torch.methods.volsurfs import VolSurfs
     from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
     from volsurfs_tpu_torch.params.params import TrainParams
@@ -520,8 +563,14 @@ def phase_train(device, shells, mv, hp, run_dir, steps=TRAIN_STEPS, prefix=""):
     from volsurfs_tpu_torch.training.trainer import Trainer
 
     t = time.perf_counter()
-    method = VolSurfs(hp, shells, bg_color="white",
+    method = VolSurfs(hp, shells, bg_color="white" if bg_source is None else "trained",
                       bounding_primitive=make_bounding_sphere(1.0), device=device, seed=0)
+    if bg_source is not None:
+        from volsurfs_tpu_torch.pipeline import _carry_bg
+
+        _carry_bg(bg_source, method)
+        if not torch.equal(method.models["bg"].encoder.table, bg_source.models["bg"].encoder.table):
+            raise AssertionError("the background was not carried into the volsurfs stage")
     timer = CB.StepTimerCallback(device)
     trainer = Trainer(method, mv, run_dir, log_every=10, seed=0,
                       train_params=TrainParams("volsurfs", TRAIN_CFG),
@@ -1106,25 +1155,26 @@ def surf_hyper_params():
     return hp, cuts
 
 
-def make_surf(hp, device, seed):
+def make_surf(hp, device, seed, bg_color="white"):
     from volsurfs_tpu_torch.methods.surf import Surf
     from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
 
-    return Surf(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=256,
+    return Surf(hp, make_bounding_sphere(1.0), bg_color=bg_color, occupancy_res=256,
                 device=device, seed=seed)
 
 
-def phase_surf_train(device, mv, run_dir):
-    """The surf stage's training through Trainer.train (phase 14): the
-    median step time of each phase, the occupancy refreshes and the
-    occupied fraction after each. Returns the trainer."""
+def phase_surf_train(device, mv, run_dir, bg_color="white", prefix="surf"):
+    """The surf stage's training through Trainer.train (phase 14; with the
+    trained background, phase 24): the median step time of each phase, the
+    occupancy refreshes and the occupied fraction after each. Its lines'
+    phases begin with prefix. Returns the trainer."""
     from volsurfs_tpu_torch.params.params import TrainParams
     from volsurfs_tpu_torch.training import callbacks as CB
     from volsurfs_tpu_torch.training.trainer import Trainer
 
     hp, cuts = surf_hyper_params()
     t = time.perf_counter()
-    method = make_surf(hp, device, seed=0)
+    method = make_surf(hp, device, seed=0, bg_color=bg_color)
     timer = CB.StepTimerCallback(device)
     trainer = Trainer(method, mv, run_dir, log_every=50, seed=0,
                       train_params=TrainParams("surf", TRAIN_CFG),
@@ -1137,7 +1187,7 @@ def phase_surf_train(device, mv, run_dir):
         refreshes.append([method.iter_nr, float(method.grid.occupancy_fraction())])
 
     method.update_occupancy_grid = recorded_refresh
-    emit("surf_setup", setup_s=time.perf_counter() - t, cuts=cuts,
+    emit(prefix + "_setup", setup_s=time.perf_counter() - t, cuts=cuts,
          params={k: sum(p.numel() for p in m.parameters()) for k, m in method.models.items()},
          rays_per_step=hp.training_rays_batch_size, lr=hp.lr)
     buckets = []
@@ -1159,18 +1209,21 @@ def phase_surf_train(device, mv, run_dir):
                   median_step_ms=float(np.median(step_ms[n_init + 5:]))),
         refreshes=refreshes, rays_bucket_by_step=buckets[::25],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit("surf_train", **result)
+    emit(prefix + "_train", **result)
     if not np.isfinite(losses).all():
-        raise AssertionError(f"surf: losses not finite: {losses.tolist()}")
+        raise AssertionError(f"{prefix}: losses not finite: {losses.tolist()}")
     if not result["sphere_init"]["last_10"] < result["sphere_init"]["first_10"] or not refreshes:
-        raise AssertionError(f"surf: the sphere-init loss did not fall or no refresh: {result}")
+        raise AssertionError(f"{prefix}: the sphere-init loss did not fall or no refresh: "
+                             f"{result}")
     return trainer
 
 
-def phase_surf_stage(device, trainer, chunk):
-    """The rest of the surf stage (phase 15): the checkpoint round trip
-    (a fresh Surf, other seed, renders test camera 0 bit for bit alike),
-    eval_split of the test split and 3 profiled data steps."""
+def phase_surf_stage(device, trainer, chunk, prefix="surf", bar=SURF_PSNR_BAR, profile=True):
+    """The rest of the surf stage (phase 15; with the trained background,
+    phase 25): the checkpoint round trip (a fresh Surf, other seed, renders
+    test camera 0 bit for bit alike), eval_split of the test split (psnr >
+    bar) and, with profile, 3 profiled data steps. Its lines' phases begin
+    with prefix. Returns the evaluation's means."""
     from volsurfs_tpu_torch.training import checkpoints
     from volsurfs_tpu_torch.training.trainer import Trainer
 
@@ -1180,7 +1233,8 @@ def phase_surf_stage(device, trainer, chunk):
     path = trainer.save_checkpoint()
     sync(device)
     save_s = time.perf_counter() - t
-    fresh = make_surf(method.hp, device, seed=1)
+    fresh = make_surf(method.hp, device, seed=1,
+                      bg_color="trained" if "bg" in method.models else "white")
     checkpoints.load_checkpoint(trainer.ckpt_dir, fresh)
     reloaded = Trainer(fresh, mv, os.path.join(run_dir, "reloaded"))
     ref = trainer.render_camera(cam, chunk)["rgb"]
@@ -1189,19 +1243,21 @@ def phase_surf_stage(device, trainer, chunk):
                   save_s=save_s, render_equal=bool(np.array_equal(got, ref)),
                   max_abs_diff=float(np.abs(got - ref).max()),
                   grid_equal=bool(torch.equal(fresh.grid.occupied, method.grid.occupied)))
-    emit("surf_checkpoint", **result)
+    emit(prefix + "_checkpoint", **result)
     if not (result["render_equal"] and result["grid_equal"]) or fresh.iter_nr != method.iter_nr:
-        raise AssertionError(f"surf checkpoint round trip differs: {result}")
+        raise AssertionError(f"{prefix} checkpoint round trip differs: {result}")
     del fresh, reloaded
 
     t = time.perf_counter()
     means = trainer.eval_split("test", chunk_size=chunk)
-    emit("surf_eval", split="test", cameras=len(mv["test"].cameras),
-         seconds=time.perf_counter() - t, bar_psnr=SURF_PSNR_BAR, **means)
-    if not means["psnr"] > SURF_PSNR_BAR:
-        raise AssertionError(f"surf: test psnr {means['psnr']} <= {SURF_PSNR_BAR}")
-    emit("surf_train_profile", steps=PROFILED_STEPS, rays=trainer._rays_bucket,
-         **profiled(trainer.train_iteration, PROFILED_STEPS))
+    emit(prefix + "_eval", split="test", cameras=len(mv["test"].cameras),
+         seconds=time.perf_counter() - t, bar_psnr=bar, **means)
+    if not means["psnr"] > bar:
+        raise AssertionError(f"{prefix}: test psnr {means['psnr']} <= {bar}")
+    if profile:
+        PROFILES[prefix] = profiled(trainer.train_iteration, PROFILED_STEPS)
+        emit(prefix + "_train_profile", steps=PROFILED_STEPS, rays=trainer._rays_bucket,
+             **PROFILES[prefix])
     return means
 
 
@@ -1793,6 +1849,342 @@ def phase_pipeline(device, offsets, mv, chunk):
     return counts
 
 
+# the surf stage with the trained background (phases 24-29): surf_hyper_params'
+# configuration and cut with bg_color "trained"; the sphere-traced render of
+# test camera 0 takes the surf bar too; the scene's background is white, and
+# the background field's mean |rgb_bg - 1| over test camera 0's background
+# pixels must stay below BG_WHITE_BAR; the volsurfs stage on the committed
+# shells with the carried background takes the pipeline's volsurfs bar
+SURF_BG_TRACED_PSNR_BAR = SURF_PSNR_BAR
+BG_WHITE_BAR = 0.1
+VOLSURFS_BG_PSNR_BAR = PIPELINE_VOLSURFS_PSNR_BAR
+TRACE_STEPS = 24  # Surf.render_rays_sphere_traced's max_st_steps
+# the witness trace of phase 26: the same frame with the cap at 100 steps,
+# which tells a trace cut short by its cap from a fault in the trace or its
+# shading (no bar: it is read beside the capped trace's numbers)
+WITNESS_TRACE_STEPS = 100
+
+
+def _camera_rays(device, cam):
+    from volsurfs_tpu_torch.datasets.cameras import get_camera_rays
+
+    return tuple(torch.from_numpy(x).to(device) for x in get_camera_rays(cam))
+
+
+def phase_surf_bg_stage(device, mv, run_dir, chunk):
+    """The surf stage with the trained background (phases 24-25): training
+    through Trainer.train at the surf path's cut, the checkpoint round trip
+    (bg included) and eval_split, and the background field's mean
+    |rgb_bg - 1| over test camera 0's background pixels. Returns the
+    trainer."""
+    from volsurfs_tpu_torch.methods.base import render_frame_chunked
+
+    trainer = phase_surf_train(device, mv, run_dir, bg_color="trained", prefix="surf_bg")
+    method = trainer.method
+    means = phase_surf_stage(device, trainer, chunk, prefix="surf_bg", profile=False)
+    test = mv["test"]
+    rays_o, rays_d = _camera_rays(device, test.cameras[0])
+
+    def render(o, d):
+        with torch.no_grad():
+            res = method.render_rays(o, d)
+        return {k: res[k] for k in ("rgb_bg", "weights_sum")}
+
+    out = render_frame_chunked(render, rays_o, rays_d, chunk)
+    background = torch.from_numpy(test.masks[0].reshape(-1) < 0.5).to(device)
+    err = float(torch.abs(out["rgb_bg"] - 1.0)[background].mean())
+    result = dict(psnr=means["psnr"], bg_pixels=int(background.sum()),
+                  mean_abs_rgb_bg_minus_1=err, bar=BG_WHITE_BAR,
+                  params_bg=sum(p.numel() for p in method.models["bg"].parameters()),
+                  nr_samples_bg=method.hp.nr_samples_bg)
+    emit("surf_bg_background", **result)
+    if not err < BG_WHITE_BAR:
+        raise AssertionError(f"surf_bg: the background did not learn the white scene: {result}")
+    return trainer
+
+
+def _trace_gap(method, rays_o, rays_d, test, rgb_traced, traced_hit, rgb_volume, vol_hit,
+               nr_samples=512):
+    """Where the sphere-traced frame loses to the volume render: each
+    render's squared error split over the pixels both hit, only the volume
+    render hits, only the trace hits and neither hits; each render's hits
+    against the ground truth's mask; and along the rays that only the
+    volume render hits, the SDF at nr_samples even depths through the
+    bounding primitive: the share whose SDF turns negative (a surface the
+    trace missed) and the median of their least SDF."""
+    from volsurfs_tpu_torch.ops import raycast as RC
+
+    gt = np.asarray(test.rgbs[0], dtype=np.float64).reshape(-1, 3)
+    mask = np.asarray(test.masks[0]).reshape(-1) > 0.5
+    groups = {"both_hit": traced_hit & vol_hit, "volume_only": vol_hit & ~traced_hit,
+              "trace_only": traced_hit & ~vol_hit, "neither": ~traced_hit & ~vol_hit}
+    split = {}
+    for name, img in (("traced", rgb_traced), ("volume", rgb_volume)):
+        err = ((np.asarray(img, dtype=np.float64).reshape(-1, 3) - gt) ** 2).sum(-1)
+        split[name] = {g: float(err[m].sum() / err.sum()) for g, m in groups.items()}
+        split[name]["mse"] = float(err.mean() / 3)
+    only = torch.from_numpy(groups["volume_only"]).to(rays_o.device)
+    o, d = rays_o[only], rays_d[only]
+    least = torch.empty(0, device=rays_o.device)
+    if o.shape[0]:
+        rc = RC.intersect_bounding_primitive(method.bounding_primitive, o, d)
+        u = torch.linspace(0.0, 1.0, nr_samples, device=o.device)[None, :]
+        t = rc["t_near"] + (rc["t_far"] - rc["t_near"]) * u
+        with torch.no_grad():
+            sdf = torch.cat([method._sdf(p, method.iter_nr)[0][:, 0] for p in torch.split(
+                (o[:, None] + t[..., None] * d[:, None]).reshape(-1, 3), 65536)])
+        least = sdf.reshape(-1, nr_samples).amin(dim=1)
+    return dict(sq_error_share=split, pixels={g: int(m.sum()) for g, m in groups.items()},
+                mask_disagreement_traced=float((traced_hit != mask).mean()),
+                mask_disagreement_volume=float((vol_hit != mask).mean()),
+                volume_only_rays=int(o.shape[0]),
+                volume_only_sdf_turns_negative=float((least < 0).float().mean())
+                if o.shape[0] else None,
+                volume_only_median_least_sdf=float(least.median()) if o.shape[0] else None)
+
+
+def phase_surf_bg_traced(device, trainer, chunk):
+    """The sphere-traced render of test camera 0 through
+    make_render_fn(sphere_traced=True) (phase 26): psnr against the ground
+    truth, the share of pixels whose hit differs from the volume render's
+    weights_sum > 0.5, the steps taken and the seconds a frame. Returns its
+    row."""
+    from volsurfs_tpu_torch.utils.evaluation import psnr
+
+    method, test = trainer.method, trainer.mv_data["test"]
+    cam = test.cameras[0]
+    rays_o, rays_d = _camera_rays(device, cam)
+    render = method.make_render_fn(sphere_traced=True)
+    render(rays_o, rays_d)  # warm-up
+    times = []
+    for _ in range(3):
+        sync(device)
+        t = time.perf_counter()
+        out = render(rays_o, rays_d)
+        rgb = out["rgb"].cpu().numpy()
+        times.append(time.perf_counter() - t)
+    H, W = cam.height, cam.width
+    traced_psnr = psnr(test.rgbs[0], rgb.reshape(H, W, 3))
+    volume = trainer.render_camera(cam, chunk)
+    vol_hit = volume["weights_sum"].reshape(-1) > 0.5
+    traced_hit = out["weights_sum"][:, 0].cpu().numpy() > 0.5
+    row = dict(rays=H * W, psnr=traced_psnr, bar_psnr=SURF_BG_TRACED_PSNR_BAR,
+               volume_psnr=psnr(test.rgbs[0], volume["rgb"]),
+               hit_share=float(traced_hit.mean()), volume_hit_share=float(vol_hit.mean()),
+               hit_disagreement=float((traced_hit != vol_hit).mean()),
+               steps=method.last_trace_steps, max_steps=TRACE_STEPS,
+               seconds_a_frame=float(np.median(times)), seconds=times,
+               finite=bool(np.isfinite(rgb).all()))
+    emit("surf_bg_traced", **row)
+    sync(device)
+    t = time.perf_counter()
+    with torch.no_grad():
+        wit = method.render_rays_sphere_traced(rays_o, rays_d, method.iter_nr,
+                                               max_st_steps=WITNESS_TRACE_STEPS)
+    wit_rgb = wit["rgb"].cpu().numpy()
+    wit_hit = wit["weights_sum"][:, 0].cpu().numpy() > 0.5
+    emit("surf_bg_traced_witness", max_steps=WITNESS_TRACE_STEPS,
+         steps=method.last_trace_steps, seconds=time.perf_counter() - t,
+         psnr=psnr(test.rgbs[0], wit_rgb.reshape(H, W, 3)),
+         hit_share=float(wit_hit.mean()),
+         hit_disagreement_with_volume=float((wit_hit != vol_hit).mean()),
+         hit_disagreement_with_capped=float((wit_hit != traced_hit).mean()),
+         finite=bool(np.isfinite(wit_rgb).all()),
+         **_trace_gap(method, rays_o, rays_d, test, rgb, traced_hit, volume["rgb"], vol_hit))
+    if not (row["finite"] and traced_psnr > SURF_BG_TRACED_PSNR_BAR):
+        raise AssertionError(f"surf_bg: the sphere-traced render is below its bar: {row}")
+    return row
+
+
+def phase_surf_bg_profile(trainer):
+    """3 profiled data steps with the trained background (phase 28), beside
+    the surf_stage path's: busy ms, launches and idle share, and what the
+    background adds."""
+    prof = PROFILES["surf_bg"] = profiled(trainer.train_iteration, PROFILED_STEPS)
+    base = PROFILES.get("surf", {})
+    added = {k: prof[k] - base[k] for k in ("wall_ms", "device_busy_ms", "kernels") if k in base}
+    emit("surf_bg_train_profile", steps=PROFILED_STEPS, rays=trainer._rays_bucket,
+         surf_stage={k: base.get(k) for k in ("wall_ms", "device_busy_ms", "kernels",
+                                             "idle_share")},
+         added_by_background=added, **prof)
+
+
+def phase_k9_k10(device, resources, trainer):
+    """K10 and K9 against their plain versions (phase 27), after the path's
+    launches were read: K10 at each of kernel_bench.K10_CASES' shapes, bit
+    for bit; K9 over a 24-step march of the test camera's 256^2 rays, each
+    step given the same SDF, at the analytic sphere (without and with a
+    256^3 grid) and at the trained surf field with its grid, bit for bit;
+    K6's forward at the trained background's contracted points (both signs
+    of every coordinate), bit for bit; and the sphere trace's loop with its
+    host check against a fixed 24 steps. Times, bounds and registers.
+    Returns (K9's row at the trained field, K10's at surf's step)."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+
+    method = trainer.method
+    k10_rows = {}
+    registers = resources.get("bg_samples_kernel", {}).get("registers")
+    for case, (R, N, jitter) in kb.K10_CASES.items():
+        args = kb.k10_case(device, R, N, jitter)
+        check = kb.k10_check(SP.contracted_bg_samples(*args), SP.bg_samples_reference(*args))
+        bound_ms, bound_by = _bound(*kb.k10_cost(R, N, jitter))
+        fn = lambda: SP.contracted_bg_samples(*args)  # noqa: E731
+        row = dict(kernel="bg_samples", case=case, rays=R, samples=N, jitter=jitter, **check,
+                   ms=kb.time_ms(fn), device_ms=kb.device_ms(fn),
+                   plain_ms=kb.time_ms(lambda: SP.bg_samples_reference(*args), reps=5,
+                                       warmup=1),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, registers=registers,
+                   spills=resources.get("bg_samples_kernel", {}).get("spill_stores"))
+        emit("k10_bg_samples", **row)
+        if not check["ok"]:
+            raise AssertionError(f"K10 ({case}) disagrees with its plain version: {row}")
+        k10_rows[case] = row
+
+    registers = resources.get("sphere_trace_step_kernel", {}).get("registers")
+    rays_o, rays_d = _camera_rays(device, trainer.mv_data["test"].cameras[0])
+
+    def field_sdf(p):
+        with torch.no_grad():
+            return method._sdf(p, method.iter_nr)[0]
+
+    cases = {"analytic": kb.k9_case(device, grid=False, pre_steps=0),
+             "analytic_grid256": kb.k9_case(device, grid=True, pre_steps=0)}
+    space = ST.trace_space(method.bounding_primitive, 1e-3, 8e-3, method.grid)
+    cases["trained_field_grid256"] = (rays_o, rays_d, field_sdf, space,
+                                      ST.trace_start(rays_o, rays_d, space))
+    k9_row = None
+    for case, (o, d, sdf, sp, state) in cases.items():
+        check = kb.k9_march_check(o, d, sdf, sp, state, steps=TRACE_STEPS)
+        # a step at the march's state after 6 steps (most rays still going)
+        st = state
+        for _ in range(6):
+            st = ST.sphere_trace_step_reference(st, sdf(o + st[0][:, None] * d)[:, 0], o, d, sp)
+        sdf1 = sdf(o + st[0][:, None] * d)[:, 0].contiguous()
+        grid = sp.grid is not None
+        bound_ms, bound_by = _bound(*kb.k9_cost(o.shape[0], grid))
+        # the kernel steps a copy of that state in place, call after call
+        work = tuple(x.clone() for x in st)
+        fn = lambda: ST.sphere_trace_step(work, sdf1, o, d, sp)  # noqa: E731
+        row = dict(kernel="sphere_trace_step", case=case, rays=o.shape[0], grid=grid,
+                   active=int((~st[7]).sum()), **check, ms=kb.time_ms(fn),
+                   device_ms=kb.device_ms(fn),
+                   plain_ms=kb.time_ms(lambda: ST.sphere_trace_step_reference(st, sdf1, o, d, sp),
+                                       reps=5, warmup=1),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, registers=registers,
+                   spills=resources.get("sphere_trace_step_kernel", {}).get("spill_stores"))
+        emit("k9_sphere_trace_step", **row)
+        if not check["ok"]:
+            raise AssertionError(f"K9 ({case}) disagrees with its plain version: {row}")
+        if case == "trained_field_grid256":
+            k9_row = row
+
+    # K6's forward at the background's contracted points of surf's step
+    args = kb.k10_case(device, *kb.K10_CASES["surf_step"][:2], jitter=True)
+    cpos = SP.contracted_bg_samples(*args)[0].reshape(-1, 3).contiguous()
+    enc = method.models["bg"].encoder
+    fwd = (cpos, enc.table.detach(), enc.W, enc.level_sizes, enc.level_offsets, None)
+    got, ref = P.permuto_forward(*fwd), P.permuto_forward_reference(*fwd, save=False)
+    differ = int((got[0] != ref[0]).sum())
+    emit("k6_bg_points", points=cpos.shape[0], negative_share=float((cpos < 0).float().mean()),
+         min=float(cpos.min()), max=float(cpos.max()), entries_differ=differ,
+         ms=kb.time_ms(lambda: P.permuto_forward(*fwd)))
+    if differ:
+        raise AssertionError(f"K6 at the background's points differs from its plain version "
+                             f"in {differ} entries")
+
+    # the trace's loop: a host check of any(~converged) a step, or a fixed
+    # TRACE_STEPS steps (converged rays step as no-ops)
+    def trace(fixed):
+        sp = ST.trace_space(method.bounding_primitive, 1e-3, 8e-3, method.grid)
+        state = ST.trace_start(rays_o, rays_d, sp)
+        steps = 0
+        while steps < TRACE_STEPS and (fixed or bool(torch.any(~state[7]))):
+            state = ST.sphere_trace_step(state, field_sdf(rays_o + state[0][:, None] * rays_d)
+                                         [:, 0], rays_o, rays_d, sp)
+            steps += 1
+        return state, steps
+
+    # t and the flags must agree (the no-op steps of converged rays move only
+    # their bracket's bookkeeping)
+    (a, n_check), (b, n_fixed) = trace(False), trace(True)
+    same = all(torch.equal(a[k], b[k]) for k in (0, 5, 6, 7))
+    emit("sphere_trace_loop", host_check_ms=kb.time_ms(lambda: trace(False), reps=5),
+         fixed_ms=kb.time_ms(lambda: trace(True), reps=5), steps_host_check=n_check,
+         steps_fixed=n_fixed, same_result=same)
+    if not same:
+        raise AssertionError("the fixed-step trace differs from the host-checked one")
+    return k9_row, k10_rows["surf_step"]
+
+
+def phase_surf_bg(device, mv, resources, chunk):
+    """The main path surf_bg_stage (phases 24-26 and 28) with the counts
+    reset before it and read after, then phase 27 (K9 and K10 against their
+    plain versions). Returns (its launches, K9's row, K10's row, the
+    trained method)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_surf_bg_run_")
+    t = time.perf_counter()
+    reset_counts()  # the main path surf_bg_stage: train, checkpoint, evaluate, trace, profile
+    trainer = phase_surf_bg_stage(device, mv, run_tmp.name, chunk)
+    phase_surf_bg_traced(device, trainer, chunk)
+    phase_surf_bg_profile(trainer)
+    counts = read_counts()
+    emit("surf_bg_stage_launches", seconds=time.perf_counter() - t,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **counts)
+    # K6, K7, K8a, K8b, K8c, K9 and K10 as kernels; not K1; no plain version
+    ran = ("permuto_fwd", "permuto_bwd", "occupancy_sampler", "combine_samples",
+           "neus_transmittance_fwd", "neus_transmittance_bwd", "neus_importance",
+           "sphere_trace_step", "bg_samples")
+    plain = [k for k, v in counts.items() if k.endswith("_reference") and v]
+    if min(counts[k] for k in ran) <= 0 or counts["scatter_add"] or plain:
+        raise AssertionError(f"the surf_bg path's launches are off: {counts}")
+    k9, k10 = phase_k9_k10(device, resources, trainer)
+    method = trainer.method
+    del trainer
+    run_tmp.cleanup()
+    return counts, k9, k10, method
+
+
+def phase_volsurfs_bg(device, mv, bg_source, chunk):
+    """The main path volsurfs_bg_stage (phase 29), with the counts reset:
+    the volsurfs stage at base_5.cfg's width on the committed sphere-scene
+    shells with the trained background, carried from bg_source (phase 24's
+    model) by pipeline._carry_bg, TRAIN_STEPS steps through Trainer.train,
+    then eval_split (psnr > the pipeline's volsurfs bar). Returns its
+    launches."""
+    from volsurfs_tpu_torch.datasets import sphere_scene
+
+    torch.cuda.empty_cache()
+    run_tmp = tempfile.TemporaryDirectory(prefix="vs_volsurfs_bg_run_")
+    t = time.perf_counter()
+    reset_counts()  # the main path volsurfs_bg_stage: train, evaluate
+    hp = smoke_hyper_params()
+    trainer = phase_train(device, sphere_scene.load_shells(), mv, hp, run_tmp.name,
+                          prefix="volsurfs_bg_", bg_source=bg_source)
+    means = trainer.eval_split("test", chunk_size=chunk)
+    counts = read_counts()
+    emit("volsurfs_bg_eval", split="test", bar_psnr=VOLSURFS_BG_PSNR_BAR,
+         nr_samples_bg=hp.nr_samples_bg, seconds=time.perf_counter() - t, **means)
+    emit("volsurfs_bg_stage_launches", **counts)
+    del trainer
+    run_tmp.cleanup()
+    torch.cuda.empty_cache()
+    # K1, K2, K6 (the background's field), K8b (its scan) and K10 as
+    # kernels; no plain version
+    ran = ("scatter_add", "bvh_trace", "permuto_fwd", "permuto_bwd", "neus_transmittance_fwd",
+           "neus_transmittance_bwd", "bg_samples")
+    plain = [k for k, v in counts.items() if k.endswith("_reference") and v]
+    if min(counts[k] for k in ran) <= 0 or plain:
+        raise AssertionError(f"the volsurfs_bg path's launches are off: {counts}")
+    if not means["psnr"] > VOLSURFS_BG_PSNR_BAR:
+        raise AssertionError(f"volsurfs_bg: test psnr {means['psnr']} <= {VOLSURFS_BG_PSNR_BAR}")
+    return counts
+
+
 def main():
     if sys.argv[1:2] == ["--orbit-profile"]:
         return orbit_profile(sys.argv[2])
@@ -1843,6 +2235,9 @@ def main():
     nerf, nerf_rays = phase_nerf(device, mv)
     k8d = phase_nerf_importance(device, resources, {"nerf_step": nerf_rays,
                                                     "render_chunk": kb.K8_EVAL_RAYS})
+    surf_bg, k9, k10, surf_bg_method = phase_surf_bg(device, mv, resources, CHUNK_SURF)
+    volsurfs_bg = phase_volsurfs_bg(device, mv, surf_bg_method, kb.CHUNK)
+    del surf_bg_method
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: over the volsurfs stage (which begins with train_render), the
@@ -1861,25 +2256,29 @@ def main():
         dict(name="scatter_add_rows", route="cuda",
              source="volsurfs_tpu_torch/csrc/scatter_add.cu",
              replaces="volsurfs_tpu/ops/pallas/scatter_add.py:107",
-             launches=stage["scatter_add"] + pipeline["scatter_add"],
+             launches=stage["scatter_add"] + pipeline["scatter_add"]
+             + volsurfs_bg["scatter_add"],
              launches_by_path={"train_render": counts["scatter_add"],
                                "volsurfs_stage": stage["scatter_add"],
-                               "pipeline_stage": pipeline["scatter_add"]},
+                               "pipeline_stage": pipeline["scatter_add"],
+                               "volsurfs_bg_stage": volsurfs_bg["scatter_add"]},
              plain_launches=stage["scatter_add_reference"] + surf["scatter_add_reference"]
-             + pipeline["scatter_add_reference"],
+             + pipeline["scatter_add_reference"] + volsurfs_bg["scatter_add_reference"],
              shape="hashgrid_backward",
              registers=resources.get("scatter_add_rows_f2_kernel", {}).get("registers"),
              **{k: k1[k] for k in keys}),
         dict(name="bvh_trace", route="cuda",
              source="volsurfs_tpu_torch/csrc/bvh_trace.cu",
              replaces="volsurfs_tpu/ops/bvh.py:490",
-             launches=stage["bvh_trace"] + baked["bvh_trace"] + pipeline["bvh_trace"],
+             launches=stage["bvh_trace"] + baked["bvh_trace"] + pipeline["bvh_trace"]
+             + volsurfs_bg["bvh_trace"],
              launches_by_path={"train_render": counts["bvh_trace"],
                                "volsurfs_stage": stage["bvh_trace"],
                                "baked_render": baked["bvh_trace"],
-                               "pipeline_stage": pipeline["bvh_trace"]},
+                               "pipeline_stage": pipeline["bvh_trace"],
+                               "volsurfs_bg_stage": volsurfs_bg["bvh_trace"]},
              plain_launches=stage["bvh_trace_reference"] + baked["bvh_trace_reference"]
-             + pipeline["bvh_trace_reference"],
+             + pipeline["bvh_trace_reference"] + volsurfs_bg["bvh_trace_reference"],
              shape=k2["shape"],
              registers=resources.get("bvh_trace_kernel", {}).get("registers"),
              **{k: k2[k] for k in keys}),
@@ -1900,7 +2299,8 @@ def main():
                              ("permuto_backward", "bwd_", "permuto_backward_grads_points_kernel")):
         count = "permuto_" + side[:-1]
         # the pipeline path evaluates its field without grads: K6's forward only
-        paths = {"surf_stage": surf, "offsets_stage": offsets, "nerf_stage": nerf}
+        paths = {"surf_stage": surf, "offsets_stage": offsets, "nerf_stage": nerf,
+                 "surf_bg_stage": surf_bg, "volsurfs_bg_stage": volsurfs_bg}
         if side == "fwd_":
             paths["pipeline_stage"] = pipeline
         kernels.append(dict(
@@ -1922,12 +2322,14 @@ def main():
         source="volsurfs_tpu_torch/csrc/occupancy_sampler.cu",
         replaces="volsurfs_tpu/ops/samplers.py:105",
         launches=surf["occupancy_sampler"] + offsets["occupancy_sampler"]
-        + nerf["occupancy_sampler"],
+        + nerf["occupancy_sampler"] + surf_bg["occupancy_sampler"],
         launches_by_path={"surf_stage": surf["occupancy_sampler"],
                           "offsets_stage": offsets["occupancy_sampler"],
-                          "nerf_stage": nerf["occupancy_sampler"]},
+                          "nerf_stage": nerf["occupancy_sampler"],
+                          "surf_bg_stage": surf_bg["occupancy_sampler"]},
         plain_launches=surf["occupancy_sampler_reference"]
-        + offsets["occupancy_sampler_reference"] + nerf["occupancy_sampler_reference"],
+        + offsets["occupancy_sampler_reference"] + nerf["occupancy_sampler_reference"]
+        + surf_bg["occupancy_sampler_reference"],
         shape=k7["shape"],
         registers={n: r.get("registers") for n, r in resources.items()
                    if n.startswith("occupancy_samples")},
@@ -1945,10 +2347,13 @@ def main():
             ("neus_importance", "neus_importance", "neus_importance_reference",
              "neus_importance_kernel", "volsurfs_tpu/ops/volume_rendering.py:137")):
         row = k8["offsets_step"][kernel]
-        # the nerf path runs K8a and K8b, not K8c (NeuS' importance round)
-        paths = {"surf_stage": surf, "offsets_stage": offsets}
+        # the nerf path runs K8a and K8b, not K8c (NeuS' importance round);
+        # the volsurfs_bg path K8b alone (the background's scan)
+        paths = {"surf_stage": surf, "offsets_stage": offsets, "surf_bg_stage": surf_bg}
         if kernel != "neus_importance":
             paths["nerf_stage"] = nerf
+        if kernel.startswith("neus_transmittance"):
+            paths["volsurfs_bg_stage"] = volsurfs_bg
         kernels.append(dict(
             name=kernel, route="cuda", source="volsurfs_tpu_torch/csrc/volrender.cu",
             replaces=line, launches=sum(c[count] for c in paths.values()),
@@ -1966,6 +2371,24 @@ def main():
         shape=f"{row['rays']}_rays_{row['samples']}_samples_{row['targets']}_targets",
         kernel="nerf_importance_kernel", registers=row["registers"],
         entries_differ=row["entries_differ"], **{k: row[k] for k in keys}))
+    kernels.append(dict(
+        name="sphere_trace_step", route="cuda", source="volsurfs_tpu_torch/csrc/sphere_trace.cu",
+        replaces="volsurfs_tpu/ops/sphere_tracing.py:161", launches=surf_bg["sphere_trace_step"],
+        launches_by_path={"surf_bg_stage": surf_bg["sphere_trace_step"]},
+        plain_launches=surf_bg["sphere_trace_step_reference"],
+        shape=f"{k9['rays']}_rays_{k9['case']}", kernel="sphere_trace_step_kernel",
+        registers=k9["registers"], entries_differ=k9["entries_differ"],
+        **{k: k9[k] for k in keys}))
+    kernels.append(dict(
+        name="bg_samples", route="cuda", source="volsurfs_tpu_torch/csrc/bg_samples.cu",
+        replaces="volsurfs_tpu/ops/samplers.py:247",
+        launches=surf_bg["bg_samples"] + volsurfs_bg["bg_samples"],
+        launches_by_path={"surf_bg_stage": surf_bg["bg_samples"],
+                          "volsurfs_bg_stage": volsurfs_bg["bg_samples"]},
+        plain_launches=surf_bg["bg_samples_reference"] + volsurfs_bg["bg_samples_reference"],
+        shape=f"{k10['rays']}_rays_{k10['samples']}_samples", kernel="bg_samples_kernel",
+        registers=k10["registers"], entries_differ=k10["entries_differ"],
+        **{k: k10[k] for k in keys}))
     print(json.dumps({"kernels": kernels}), flush=True)
     for k in kernels:
         if (k["launches"] <= 0 or k["plain_launches"] != 0

@@ -15,6 +15,7 @@ from volsurfs_tpu_torch.methods.nerf import NeRF
 from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
 from volsurfs_tpu_torch.params.hyper_params import HyperParamsNeRF
 
+from _torch_offsets_pair import flax_params
 from _torch_surf_pair import _flax_params
 
 torch.set_num_threads(2)
@@ -33,21 +34,22 @@ S = HP["max_nr_samples_per_ray"] + HP["max_nr_imp_samples_per_ray"]
 N_POINTS = R * S
 
 
-def make_pair():
+def make_pair(bg_color="white"):
     """(JAX method, JAX params, port method) with the same parameters: the
     port's initial MLPs, tables drawn in [-0.05, 0.05] from a numpy seed,
     and the port's grid refreshed at DATA_ITER (the JAX side takes the same
-    grid)."""
+    grid). With bg_color None both have the trained background (``bg``)."""
     rng = np.random.default_rng(0)
-    jmethod = JNeRF(JHP(**HP), j_sphere(1.0), bg_color="white", occupancy_res=RES,
+    jmethod = JNeRF(JHP(**HP), j_sphere(1.0), bg_color=bg_color, occupancy_res=RES,
                     key=jax.random.PRNGKey(0))
-    method = NeRF(HyperParamsNeRF(**HP), make_bounding_sphere(1.0), bg_color="white",
+    method = NeRF(HyperParamsNeRF(**HP), make_bounding_sphere(1.0), bg_color=bg_color,
                   occupancy_res=RES, device="cpu")
     with torch.no_grad():
         for module in method.models.values():
             module.encoder.table.copy_(torch.from_numpy(
                 rng.uniform(-0.05, 0.05, tuple(module.encoder.table.shape)).astype(np.float32)))
-    params = {name: _flax_params(module) for name, module in method.models.items()}
+    params = {name: _flax_params(module) if name != "bg" else flax_params(module)
+              for name, module in method.models.items()}
     for name, state in params_from_jax(params).items():  # the round trip
         method.models[name].load_state_dict(state)
     method.iter_nr = DATA_ITER

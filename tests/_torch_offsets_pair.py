@@ -33,7 +33,8 @@ S = HP["max_nr_samples_per_ray"] + HP["max_nr_imp_samples_per_ray"]
 # so that JAX, run op by op, compiles the encoders' ops once for both
 N_POINTS = R * S
 
-_FLAX_NAMES = {"encoder": "PermutoEncoder_0", "mlp": "MLP_0"}
+# the port's submodule names and flax's (NerfHash's rgb head is its MLP_1)
+_FLAX_NAMES = {"encoder": "PermutoEncoder_0", "mlp": "MLP_0", "mlp_rgb": "MLP_1"}
 
 
 def flax_params(module):
@@ -53,16 +54,16 @@ def flax_params(module):
     return {"params": tree}
 
 
-def make_pair():
+def make_pair(bg_color="white"):
     """(JAX method, JAX params, port method) with the same parameters: the
     port's initial MLPs, tables drawn in [-0.05, 0.05] from a numpy seed,
     and the port's grid refreshed at DATA_ITER (the JAX side takes the same
-    grid)."""
+    grid). With bg_color None both have the trained background (``bg``)."""
     rng = np.random.default_rng(0)
-    jmethod = JOffsetsSurfs(JHP(**HP), j_sphere(1.0), bg_color="white", occupancy_res=RES,
+    jmethod = JOffsetsSurfs(JHP(**HP), j_sphere(1.0), bg_color=bg_color, occupancy_res=RES,
                             key=jax.random.PRNGKey(0))
     method = OffsetsSurfs(HyperParamsOffsetsSuRFs(**HP), make_bounding_sphere(1.0),
-                          bg_color="white", occupancy_res=RES, device="cpu")
+                          bg_color=bg_color, occupancy_res=RES, device="cpu")
     with torch.no_grad():
         for name, p in method.models.named_parameters():
             if name.endswith("table"):

@@ -40,13 +40,18 @@ TOLERANCES = {
 TOLERANCES["second"] = TOLERANCES["first"]
 
 
-def _data_draws(rng, train_main):
+def _data_draws(rng, train_main, nr_samples_bg=0):
     """The data step's draws: the samplers' jitter to the port alone, then
-    N_POINTS of the 1,024 random points and, where the main surface trains,
-    the curvature directions."""
+    the trained background's jitter (where nr_samples_bg > 0, from a seed of
+    its own, so that the other draws stay the same), N_POINTS of the 1,024
+    random points and, where the main surface trains, the curvature
+    directions."""
     n_imp = HP["max_nr_imp_samples_per_ray"] // 2
     requests = [((1024, 3), rng.standard_normal((N_POINTS, 3)).astype(np.float32)),
                 ((1024, 1), rng.uniform(0, 1, (N_POINTS, 1)).astype(np.float32))]
+    if nr_samples_bg:
+        requests.insert(0, ((R, nr_samples_bg), np.random.default_rng(13).uniform(
+            0, 1, (R, nr_samples_bg)).astype(np.float32)))
     if train_main:
         requests.append(((R, S, 3), rng.standard_normal((R, S, 3)).astype(np.float32)))
     return Draws(requests, port_only=[rng.uniform(0, 1, (R, 1)).astype(np.float32),
@@ -75,7 +80,8 @@ def check_train_step(pair, monkeypatch, phase):
     else:
         o, d = camera_rays(4, R)
         gt = rng.uniform(0, 1, (R, 3)).astype(np.float32)
-        draws = _data_draws(rng, train_main)
+        draws = _data_draws(rng, train_main,
+                            method.hp.nr_samples_bg if "bg" in method.models else 0)
         feed(monkeypatch, method, draws)
         share_samples(monkeypatch, method, jmethod)
         batch = {"rays_o": o, "rays_d": d, "gt_rgb": gt}

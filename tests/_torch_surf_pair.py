@@ -46,21 +46,26 @@ def _flax_params(module):
     return {"params": tree}
 
 
-def make_pair():
+def make_pair(bg_color="white", hp=None):
     """(JAX method, JAX params, port method) with the same parameters: the
     port's initial MLPs, tables drawn in [-0.05, 0.05] from a numpy seed
     (flax's init is not run: it would compile both fields), and the port's
-    grid refreshed at DATA_ITER (the JAX side takes the same grid)."""
+    grid refreshed at DATA_ITER (the JAX side takes the same grid). With
+    bg_color None both have the trained background (``bg``)."""
+    from _torch_offsets_pair import flax_params
+
     rng = np.random.default_rng(0)
-    jmethod = JSurf(JHP(**HP), j_sphere(1.0), bg_color="white", occupancy_res=RES,
+    hp = {**HP, **(hp or {})}
+    jmethod = JSurf(JHP(**hp), j_sphere(1.0), bg_color=bg_color, occupancy_res=RES,
                     key=jax.random.PRNGKey(0))
-    method = Surf(HyperParamsSuRF(**HP), make_bounding_sphere(1.0), bg_color="white",
+    method = Surf(HyperParamsSuRF(**hp), make_bounding_sphere(1.0), bg_color=bg_color,
                   occupancy_res=RES, device="cpu")
     with torch.no_grad():
         for module in method.models.values():
             module.encoder.table.copy_(torch.from_numpy(
                 rng.uniform(-0.05, 0.05, tuple(module.encoder.table.shape)).astype(np.float32)))
-    params = {name: _flax_params(module) for name, module in method.models.items()}
+    params = {name: _flax_params(module) if name != "bg" else flax_params(module)
+              for name, module in method.models.items()}
     for name, state in params_from_jax(params).items():  # the round trip
         method.models[name].load_state_dict(state)
     method.iter_nr = DATA_ITER
@@ -143,7 +148,9 @@ def port_grads(method):
 
 
 def jax_grads(grads, names=("sdf", "rgb")):
-    flat = {}
+    from _torch_offsets_pair import flat_grads
+
+    flat = {f"bg.{k}": v for k, v in flat_grads(grads["bg"]).items()} if "bg" in grads else {}
     for name in names:
         tree = grads[name]["params"]
         flat[f"{name}.encoder.table"] = np.asarray(tree["PermutoEncoder_0"]["table"])

@@ -945,7 +945,8 @@ def test_offsets_surfs_steps_on_the_card(cuda, tmp_path):
     mv = MVDataset("synthetic", "sphere", "",
                    config={"width": 24, "height": 24, "nr_train_cameras": 4,
                            "nr_test_cameras": 1})
-    method = OffsetsSurfs(hp, make_bounding_sphere(1.0), occupancy_res=16, device=cuda)
+    method = OffsetsSurfs(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=16,
+                          device=cuda)
     trainer = Trainer(method, mv, str(tmp_path))
     losses = []
     trainer.train(callback=lambda it, m, l: losses.append(float(l["loss"])))
@@ -1007,3 +1008,148 @@ def test_pipeline_on_the_card(cuda, tmp_path, monkeypatch):
     counts = {k: v for c in modules for k, v in c.items()}
     for name in ("permuto_fwd", "scatter_add", "bvh_trace", "shade"):
         assert counts[name] > 0 and counts[name + "_reference"] == 0, counts
+
+
+# ---- K10 and K9: the background's samples and the sphere-trace step --------
+
+
+@pytest.mark.parametrize("R,N,jitter", [(512, 64, True), (65536, 64, True), (2048, 64, False),
+                                        (512, 32, True)])
+def test_bg_samples_kernel_matches_plain_bit_for_bit(cuda, R, N, jitter):
+    """K10 at the paths' shapes (surf's step, a sphere-traced frame, an eval
+    chunk, volsurfs' step), a quarter of the rays starting at 0: the
+    contracted points and directions, distances, gaps, max_dt and depths
+    equal the plain version's bit for bit."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import samplers as SP
+
+    args = kb.k10_case(cuda, R, N, jitter)
+    got = SP.contracted_bg_samples(*args)
+    ref = SP.bg_samples_reference(*args)
+    torch.cuda.synchronize()
+    result = kb.k10_check(got, ref)
+    assert result["ok"], result
+    assert float(got[0].norm(dim=-1).max()) <= 1.0
+
+
+def test_bg_samples_kernel_rejects_wrong_inputs(cuda):
+    from volsurfs_tpu_torch.ops import samplers as SP
+
+    o = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(ValueError, match="t_start"):
+        SP.contracted_bg_samples(o, o, torch.zeros(4, 2, device=cuda), 8)
+    with pytest.raises(ValueError, match="at least 2"):
+        SP.contracted_bg_samples(o, o, torch.zeros(4, 1, device=cuda), 1)
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_sphere_trace_step_kernel_matches_plain_analytic(cuda, grid):
+    """A 24-step march of a 256^2 frame at an analytic sphere, without and
+    with a 256^3 grid (the coarse 4^3 level on): every step's state equals
+    the plain version's bit for bit, each step given the same SDF."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+
+    rays_o, rays_d, sdf, space, state = kb.k9_case(cuda, grid=grid, pre_steps=0)
+    result = kb.k9_march_check(rays_o, rays_d, sdf, space, state, steps=24)
+    assert result["ok"], result
+
+
+@pytest.mark.parametrize("res", [0, 24, 22])
+def test_sphere_trace_step_kernel_matches_plain_surf_field(cuda, res):
+    """A 24-step march of a small random surf SDF (the full 24-level table,
+    an MLP 16-16) from a camera, without a grid and with its refreshed grid
+    at 24^3 (the coarse level on) and 22^3 (off): bit for bit, each step
+    given the same SDF."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsSuRF
+
+    hp = HyperParamsSuRF(appearance_predict_sh_coeffs=True, sdf_mlp_layers_dims=[16, 16],
+                         geom_feat_size=8, rgb_mlp_layers_dims=[32, 32], sh_degree=2,
+                         init_phase_end_iter=10, first_phase_end_iter=100,
+                         use_occupancy_grid=res > 0)
+    method = Surf(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=res or 8,
+                  device=cuda, seed=3)
+    rng = np.random.default_rng(res)
+    table = method.models["sdf"].encoder.table
+    with torch.no_grad():
+        table.copy_(torch.from_numpy(rng.uniform(-0.05, 0.05, tuple(table.shape))
+                                     .astype(np.float32)).to(cuda))
+    method.iter_nr = 30
+    method.update_occupancy_grid()
+    o = np.tile(np.float32([[0.0, 0.0, -2.0]]), (4096, 1))
+    d = rng.normal(0, 0.3, (4096, 3)).astype(np.float32) + np.float32([0, 0, 1])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_o, rays_d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    space = ST.trace_space(method.bounding_primitive, 1e-3, 8e-3, method.grid)
+    state = ST.trace_start(rays_o, rays_d, space)
+
+    def sdf(p):
+        with torch.no_grad():
+            return method._sdf(p, method.iter_nr)[0]
+
+    result = kb.k9_march_check(rays_o, rays_d, sdf, space, state, steps=24)
+    assert result["ok"], result
+
+
+@pytest.mark.parametrize("with_grad", [False, True])
+def test_permuto_forward_kernel_on_contracted_points(cuda, with_grad):
+    """K6 forward at the background's points: contracted into the unit
+    ball, every coordinate of either sign, with bb_sides None (the points
+    as they are): feats and dfeats bit for bit."""
+    from volsurfs_tpu_torch.models.encodings import PermutoEncoder
+    from volsurfs_tpu_torch.ops import samplers as SP
+
+    rng = np.random.default_rng(9)
+    enc = PermutoEncoder(bb_sides=None).to(cuda)
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(
+            rng.uniform(-0.5, 0.5, tuple(enc.table.shape)).astype(np.float32)))
+    pts = torch.from_numpy(rng.uniform(-20, 20, (65536, 3)).astype(np.float32)).to(cuda)
+    unit = SP.contract_points(pts).contiguous()
+    assert float(unit.min()) < -0.9 and float(unit.max()) > 0.9
+    _check_permuto_forward(enc, unit, with_grad)
+
+
+def test_surf_with_the_trained_background_on_the_card(cuda, tmp_path):
+    """The surf configuration of tests/_stage_config.py with the trained
+    background for 64 steps through Trainer.train, a volumetric and a
+    sphere-traced render of a test camera: finite losses and frames, and
+    the path launched K6, K7, K8b, K9 and K10, no plain version."""
+    from volsurfs_tpu_torch.datasets.cameras import get_camera_rays
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.ops import permuto as P
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops import samples as TS
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+    from volsurfs_tpu_torch.ops import volume_rendering as VR
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsSuRF
+    from volsurfs_tpu_torch.training.trainer import Trainer
+
+    from _stage_config import SURF_DATA, SURF_HP, SURF_INIT_SPHERE_RADIUS, SURF_OCCUPANCY_RES
+
+    modules = (P.launches, SP.launches, TS.launches, VR.launches, ST.launches)
+    for counts in modules:
+        for key in counts:
+            counts[key] = 0
+    mv = MVDataset("synthetic", "sphere", "", config=SURF_DATA)
+    method = Surf(HyperParamsSuRF(**SURF_HP), make_bounding_sphere(1.0), bg_color="trained",
+                  init_sphere_radius=SURF_INIT_SPHERE_RADIUS, occupancy_res=SURF_OCCUPANCY_RES,
+                  device=cuda)
+    trainer = Trainer(method, mv, str(tmp_path))
+    losses = []
+    trainer.train(end_iter=64, callback=lambda it, m, l: losses.append(float(l["loss"])))
+    assert np.isfinite(losses).all()
+    out = trainer.render_camera(mv["test"].cameras[0])
+    assert np.isfinite(out["rgb"]).all()
+    rays_o, rays_d = (torch.from_numpy(x).to(cuda) for x in get_camera_rays(mv["test"].cameras[0]))
+    traced = method.make_render_fn(sphere_traced=True)(rays_o, rays_d)
+    assert bool(torch.isfinite(traced["rgb"]).all()) and method.last_trace_steps > 0
+    counts = {k: v for c in modules for k, v in c.items()}
+    assert min(counts[k] for k in ("permuto_fwd", "permuto_bwd", "occupancy_sampler",
+                                   "neus_transmittance_fwd", "neus_transmittance_bwd",
+                                   "bg_samples", "sphere_trace_step")) > 0, counts
+    assert not any(v for k, v in counts.items() if k.endswith("_reference")), counts

@@ -76,7 +76,7 @@ def test_baker_mesh_flags_on_cpu_runs(tmp_path, capsys):
     sphere-init steps): --extract_meshes its zero level set and
     --extract_bg_mesh the TSDF fusion of its depth renders."""
     surf = Surf(HyperParamsSuRF(**WIDTHS, use_occupancy_grid=False), make_bounding_sphere(1.0),
-                init_sphere_radius=0.5, device="cpu", seed=5)
+                bg_color="white", init_sphere_radius=0.5, device="cpu", seed=5)
     # a sphere of radius 0.5 in the SDF's output bias, the rest small noise
     with torch.no_grad():
         surf.models["sdf"].encoder.table.uniform_(-1e-3, 1e-3)

@@ -170,8 +170,8 @@ def test_occupancy_refresh_matches_jax(pair, monkeypatch):
     last = f"dense_{len(HP['density_mlp_layers_dims'])}"
     params = jax.tree_util.tree_map(np.copy, params)
     params["density"]["params"]["MLP_0"][last]["bias"][0] -= 9.5
-    port = NeRF(HyperParamsNeRF(**HP), make_bounding_sphere(1.0), occupancy_res=RES,
-                device="cpu")
+    port = NeRF(HyperParamsNeRF(**HP), make_bounding_sphere(1.0), bg_color="white",
+                occupancy_res=RES, device="cpu")
     port.models["density"].load_state_dict(module_state_from_flax(params["density"]))
     port.iter_nr = DATA_ITER
     port.grid = TO.OccupancyGrid(torch.from_numpy(old), port.grid.occupancy, port.grid.roi,
@@ -216,8 +216,8 @@ def test_jax_checkpoint_and_config_carry_over(pair, tmp_path):
     state = SimpleNamespace(params=params, opt_state={}, key=np.zeros(2, np.uint32),
                             iter_nr=7, grid=None)
     JCK.save_checkpoint(str(tmp_path), state)
-    fresh = NeRF(HyperParamsNeRF(**HP), make_bounding_sphere(1.0), occupancy_res=RES,
-                 device="cpu", seed=3)
+    fresh = NeRF(HyperParamsNeRF(**HP), make_bounding_sphere(1.0), bg_color="white",
+                 occupancy_res=RES, device="cpu", seed=3)
     assert checkpoints.load_jax_params(str(tmp_path), fresh) is fresh
     ref = jax_grads(params, ("density", "rgb"))  # the same flattening, of the parameters
     for name, module in fresh.models.items():

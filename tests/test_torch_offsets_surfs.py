@@ -79,11 +79,12 @@ def test_load_main_sdf_from_a_port_surf():
     the main head: the main surface's SDF and features equal the surf's."""
     surf_hp = HyperParamsSuRF(sdf_mlp_layers_dims=[16, 16], geom_feat_size=8,
                               sdf_nr_iters_for_c2f=0, use_occupancy_grid=False)
-    surf = Surf(surf_hp, make_bounding_sphere(1.0), device="cpu", seed=4)
+    surf = Surf(surf_hp, make_bounding_sphere(1.0), bg_color="white", device="cpu", seed=4)
     with torch.no_grad():
         surf.models["sdf"].encoder.table.uniform_(-0.1, 0.1)
     method = OffsetsSurfs(HyperParamsOffsetsSuRFs(**{**HP, "use_occupancy_grid": False}),
-                          make_bounding_sphere(1.0), occupancy_res=RES, device="cpu")
+                          make_bounding_sphere(1.0), bg_color="white", occupancy_res=RES,
+                          device="cpu")
     assert method.load_main_sdf(surf.models["sdf"].state_dict()) is method
     pts = torch.from_numpy(np.random.default_rng(2).uniform(-0.5, 0.5, (256, 3))
                            .astype(np.float32))

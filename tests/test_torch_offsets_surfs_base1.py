@@ -81,4 +81,5 @@ def test_per_surface_fields_above_one_surface_raise(flag):
     flags = {"are_surfs_colors_indep": False, "are_surfs_transparency_indep": False}
     hp = _hp(nr_inner_surfs=1, **{**flags, flag: True})
     with pytest.raises(NotImplementedError, match="above one surface"):
-        OffsetsSurfs(hp, make_bounding_sphere(1.0), occupancy_res=16, device="cpu")
+        OffsetsSurfs(hp, make_bounding_sphere(1.0), bg_color="white", occupancy_res=16,
+                     device="cpu")

@@ -83,7 +83,7 @@ def test_offsets_surfs_cli_from_a_surf_run(tmp_path):
     widths = {"sdf_mlp_layers_dims": [16, 16], "geom_feat_size": 8,
               "rgb_mlp_layers_dims": [32, 32], "sh_degree": 1}
     surf = Surf(HyperParamsSuRF(**widths, use_occupancy_grid=False), make_bounding_sphere(1.0),
-                device="cpu", seed=5)
+                bg_color="white", device="cpu", seed=5)
     with torch.no_grad():
         surf.models["sdf"].encoder.table.uniform_(-0.1, 0.1)
     models = tmp_path / "surf_models"

@@ -188,7 +188,8 @@ def test_cpu_tensors_take_the_plain_permuto_and_sampler():
     assert bool(mask.all()) and z.shape == (1, 16)
     assert P.launches == {"permuto_fwd": 0, "permuto_fwd_reference": 1,
                           "permuto_bwd": 0, "permuto_bwd_reference": 1}
-    assert SP.launches == {"occupancy_sampler": 0, "occupancy_sampler_reference": 1}
+    assert SP.launches == {"occupancy_sampler": 0, "occupancy_sampler_reference": 1,
+                           "bg_samples": 0, "bg_samples_reference": 0}
     assert S.launches == {"scatter_add": 0, "scatter_add_reference": 1}
 
 
@@ -262,3 +263,27 @@ def test_cpu_tensors_take_the_plain_volume_rendering_kernels():
                            "neus_transmittance_reference": 4, "neus_importance": 0,
                            "neus_importance_reference": 1, "nerf_importance": 0,
                            "nerf_importance_reference": 1}
+
+
+def test_cpu_tensors_take_the_plain_background_samples_and_march_step():
+    """K10 (the background's samples) and K9 (a sphere-trace step) on CPU
+    tensors run their plain versions."""
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+
+    for counts in (SP.launches, ST.launches):
+        for key in counts:
+            counts[key] = 0
+    rays_o = torch.tensor([[0.0, 0.0, -2.0], [0.0, 3.0, -2.0]])
+    rays_d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]])
+    cpos, dirs, c, z = SP.contracted_bg_samples(rays_o, rays_d, torch.tensor([[3.0], [0.0]]), 8)
+    assert cpos.shape == (2, 8, 3) and bool((z[:, -1] == 100.0).all())
+    assert float(cpos.norm(dim=-1).max()) <= 1.0
+    trace = ST.sphere_trace(lambda p: torch.linalg.norm(p, dim=-1, keepdim=True) - 0.5,
+                            rays_o, rays_d, make_bounding_sphere(1.0), nr_sphere_traces=16)
+    assert trace["is_hit"].tolist() == [True, False]
+    assert abs(float(trace["z"][0, 0]) - 1.5) < 1e-3
+    assert SP.launches == {"occupancy_sampler": 0, "occupancy_sampler_reference": 0,
+                           "bg_samples": 0, "bg_samples_reference": 1}
+    assert ST.launches == {"sphere_trace_step": 0,
+                           "sphere_trace_step_reference": trace["steps"]}

@@ -105,8 +105,8 @@ def test_jax_checkpoint_carries_over(pair, tmp_path):
     state = SimpleNamespace(params=params, opt_state={}, key=np.zeros(2, np.uint32),
                             iter_nr=7, grid=None)
     JCK.save_checkpoint(str(tmp_path), state)
-    fresh = Surf(HyperParamsSuRF(**HP), make_bounding_sphere(1.0), occupancy_res=RES,
-                 device="cpu", seed=3)
+    fresh = Surf(HyperParamsSuRF(**HP), make_bounding_sphere(1.0), bg_color="white",
+                 occupancy_res=RES, device="cpu", seed=3)
     assert checkpoints.load_jax_params(str(tmp_path), fresh) is fresh
     assert fresh.iter_nr == 0
     ref = jax_grads(params)  # the same flattening, of the parameters

@@ -40,7 +40,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     # the kernels must round as separate IEEE products and sums, as their
     # plain versions do (see csrc/bvh_trace.cu, csrc/shade.cu, csrc/permuto.cu,
-    # csrc/occupancy_sampler.cu, csrc/volrender.cu)
+    # csrc/occupancy_sampler.cu, csrc/volrender.cu, csrc/bg_samples.cu,
+    # csrc/sphere_trace.cu)
     "-fmad=false",
 ]
 GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
@@ -68,6 +69,11 @@ _KERNEL_SIGNATURES = {
         "vs_neus_transmittance_forward": (_I, [_P] * 5 + [_I, _LL, _P]),
         "vs_neus_transmittance_backward": (_I, [_P] * 7 + [_I, _LL, _P]),
         "vs_importance": (_I, [_P] * 5 + [_F, _P, _P, _I, _I, _I, _LL, _I, _P]),
+    },
+    "bg_samples.cu": {"vs_bg_samples": (_I, [_P] * 4 + [_F, _F] + [_P] * 5 + [_I, _LL, _P])},
+    "sphere_trace.cu": {
+        "vs_sphere_trace_step": (_I, [_P] * 13 + [_F, _F, _F, _I, _I, _F, _I] + [_F] * 8
+                                 + [_LL, _P]),
     },
     "shade.cu": {
         "vs_shade_composite": (_I, [_P] * 10 + [_I, _I, _LL, _I, _P, _P, _P]),

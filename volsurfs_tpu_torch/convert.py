@@ -1,5 +1,5 @@
 """Carry parameters of a JAX ``Surf``, ``NeRF``, ``OffsetsSurfs`` or
-``VolSurfs`` over to the port.
+``VolSurfs`` over to the port (the trained background ``bg`` included).
 
 ``params_from_jax`` takes ``TrainState.params`` of the JAX method as a
 nested dict of numpy arrays ({"sdf": {"params": {...}}, "rgb": ...};
@@ -9,7 +9,8 @@ and returns one state dict per port module, ready for
 ``Dense`` kernels are [in, out] and torch ``Linear`` weights [out, in], so
 they are transposed; hash-table rows keep their order. Flax's automatic
 submodule names become the port's attribute names (``PermutoEncoder_0`` ->
-``encoder``, ``MLP_0`` -> ``mlp``); ``OffsetsSDF``'s ``setup()`` names
+``encoder``, ``MLP_0`` -> ``mlp``, ``MLP_1`` -> ``mlp_rgb``, NerfHash's rgb
+head); ``OffsetsSDF``'s ``setup()`` names
 (``pos_encoder``, ``mlp_sdf``, ``mlp_eps_{i}``) are the port's as they are.
 """
 
@@ -28,7 +29,8 @@ def _flatten(tree, prefix=""):
             yield name, value
 
 
-_SUBMODULES = {"PermutoEncoder_0": "encoder", "MLP_0": "mlp"}
+# NerfHash's second MLP (its rgb head) is flax's MLP_1
+_SUBMODULES = {"PermutoEncoder_0": "encoder", "MLP_0": "mlp", "MLP_1": "mlp_rgb"}
 
 
 def _torch_name(flax_name: str) -> str:

@@ -1,8 +1,8 @@
 """Times the port's CUDA kernels at the shapes of the volsurfs main path.
 
-    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6] [k7] [k8]
+    python -m volsurfs_tpu_torch.kernel_bench [k1] [k2] [k6] [k7] [k8] [k9] [k10]
 
-(all five without arguments):
+(all seven without arguments):
 
 - K1 ``scatter_add_rows``: one HashGrid2D backward of the train step (16
   levels x 4 lerp corners x 512 rays x 4 hash corners, F=2, into the
@@ -30,7 +30,14 @@
   scan forward and backward on [K x R, 96] rows and each round of
   ``neus_importance``; and K8d ``nerf_importance`` (the nerf step's
   round: 64 samples, 32 new depths; inputs from ``k8d_case``) at 512 and
-  2,048 rays, where the tree has it.
+  2,048 rays, where the tree has it;
+- K10 ``contracted_bg_samples`` (the background's samples, contracted;
+  inputs from ``k10_case``) at surf's data step (512 rays x 64 samples), an
+  eval chunk (2,048 x 64), a sphere-traced 256^2 frame (65,536 x 64) and
+  volsurfs' step (512 x 32), jittered where a train step jitters;
+- K9 ``sphere_trace_step`` (one march step; ``k9_case``) on a 256^2
+  frame's rays at the sphere of the smoke scene, with and without a
+  256^3 grid, after 6 steps of the march.
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 shape) with ``ms`` (median of CUDA-event timings of one call) and
@@ -416,6 +423,124 @@ def k8d_case(device, R, S=K8D_UNIFORM, n=K8D_IMP, seed=0, count=None):
             torch.from_numpy(jitter).to(device))
 
 
+# K10's shapes on the paths (rays, samples a ray, jittered): surf's and
+# nerf's data step (nr_samples_bg 64 in their base.cfg), an eval chunk, a
+# sphere-traced 256^2 frame, volsurfs' step (nr_samples_bg's default, 32)
+K10_CASES = {"surf_step": (512, 64, True), "eval_chunk": (2048, 64, False),
+             "traced_frame": (65536, 64, False), "volsurfs_step": (512, 32, True)}
+# operations of one sample in K10's plain version (ops/samplers.py): the
+# inverse depth (s, the reciprocal, the sums, the clamp: 7), the jitter's
+# lerp (3), the gap and its max (2), the point o + t d (6), the contraction
+# (the doubled point 3, the norm's product, two fmas and root 4, the clamp,
+# the factor 2, the scaled point 6, the select: 17), the distance (the
+# difference 3, the norm 4) and its gap (the difference, the clamps: 3)
+K10_OPS_A_SAMPLE = 49
+
+
+def k10_case(device, R, N, jitter=True, seed=0):
+    """The inputs of K10 at R rays of N samples: (rays_o, rays_d, t_start
+    [R, 1], N, jitter [R, N] or None). Origins at radius 2 to 3 around the
+    unit bounding sphere, directions toward it; a quarter of the rays miss
+    it, and start their background at 0 (t_start, the sphere's far end, is
+    0 there)."""
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+
+    rng = np.random.default_rng(seed)
+    o = rng.standard_normal((R, 3))
+    o *= rng.uniform(2.0, 3.0, (R, 1)) / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (R, 3)) - o
+    d[: R // 4] = o[: R // 4] + rng.uniform(-0.1, 0.1, (R // 4, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_o = torch.from_numpy(o.astype(np.float32)).to(device)
+    rays_d = torch.from_numpy(d.astype(np.float32)).to(device)
+    _, _, t_far, _, _ = make_bounding_sphere(1.0).intersect(rays_o, rays_d)
+    u = None
+    if jitter:
+        u = torch.from_numpy(rng.uniform(0, 1, (R, N)).astype(np.float32)).to(device)
+    return rays_o, rays_d, t_far[:, None].contiguous(), N, u
+
+
+def k10_cost(R, N, jitter):
+    """(bytes, operations) of one K10 call: the rays, t_start and, where
+    jittered, the jitter read once; the contracted points, the contracted
+    distances, gaps and depths, and max_dt written once (the directions are
+    the rays', expanded: not written)."""
+    nbytes = R * (6 * 4 + 4 + 4) + R * N * ((4 if jitter else 0) + 3 * 4 + 3 * 4)
+    return nbytes, R * N * K10_OPS_A_SAMPLE
+
+
+def k10_check(got, ref):
+    """K10's outputs (cpos, dirs, the contracted RaySamples, z) against its
+    plain version's: every tensor bit for bit. Returns {"max_abs_err",
+    "ok", "entries_differ"}."""
+    pairs = [(got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3])] + [
+        (getattr(got[2], f), getattr(ref[2], f)) for f in ("z", "dt", "mask", "max_dt")]
+    errs = [float((g.float() - r.float()).abs().max()) for g, r in pairs]
+    differ = sum(int((g != r).sum()) for g, r in pairs)
+    return {"max_abs_err": max(errs), "ok": differ == 0, "entries_differ": differ}
+
+
+def k9_case(device, res=256, grid=True, pre_steps=6, seed=0):
+    """A march step's inputs on a 256^2 frame's rays at the smoke scene's
+    sphere: (rays_o, rays_d, the SDF function, the TraceSpace, the state
+    after pre_steps steps). The SDF is the sphere's analytic distance; the
+    grid (with grid) is occupied within 1.5 voxels of it, over the
+    bounding sphere's ROI."""
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+    from volsurfs_tpu_torch.ops.occupancy import make_grid
+    from volsurfs_tpu_torch.ops.raycast import make_bounding_sphere
+    from volsurfs_tpu_torch.utils.math import norm3
+
+    rays_o, rays_d, _ = test_camera(device)
+    radius = 0.5
+
+    def sdf(p):
+        return (norm3(p) - radius)[:, None]
+
+    occupancy = None
+    if grid:
+        occupancy = make_grid(res, 2.0, sphere_roi_radius=1.0, device=device)
+        dist = torch.abs(norm3(occupancy.voxel_centers()) - radius)
+        occupancy = type(occupancy)(occupancy.values, (dist < 1.5 * 2.0 / res).view((res,) * 3),
+                                    occupancy.roi, occupancy.extent)
+    space = ST.trace_space(make_bounding_sphere(1.0), 1e-3, 8e-3, occupancy)
+    state = ST.trace_start(rays_o, rays_d, space)
+    for _ in range(pre_steps):
+        state = ST.sphere_trace_step_reference(state, sdf(rays_o + state[0][:, None] * rays_d)[:, 0],
+                                               rays_o, rays_d, space)
+    return rays_o, rays_d, sdf, space, state
+
+
+def k9_cost(R, grid):
+    """(bytes, operations) of one K9 step over R rays: the rays (24 B), the
+    SDF (4) and the state (5 floats, 3 bools: 23) read once, the state
+    written once, and with a grid a ray's occupancy byte; ~150 operations a
+    ray (the plain version's)."""
+    nbytes = R * (24 + 4 + 23 + 23 + (1 if grid else 0))
+    return nbytes, R * 150
+
+
+def k9_march_check(rays_o, rays_d, sdf, space, state, steps=24):
+    """March steps from state with the kernel and the plain version side by
+    side, each step's SDF evaluated once at the kernel's points and given to
+    both: every state tensor bit for bit after every step. Returns
+    {"steps", "ok", "entries_differ", "max_abs_err", "active_after"}."""
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+
+    kernel = tuple(x.clone() for x in state)
+    plain = tuple(x.clone() for x in state)
+    differ, max_err = 0, 0.0
+    for _ in range(steps):
+        sdf1 = sdf(rays_o + kernel[0][:, None] * rays_d)[:, 0].contiguous()
+        plain = ST.sphere_trace_step_reference(plain, sdf1, rays_o, rays_d, space)
+        kernel = ST.sphere_trace_step(kernel, sdf1, rays_o, rays_d, space)
+        for g, r in zip(kernel, plain):
+            differ += int((g != r).sum())
+            max_err = max(max_err, float((g.float() - r.float()).abs().max()))
+    return {"steps": steps, "ok": differ == 0, "entries_differ": differ,
+            "max_abs_err": max_err, "active_after": int((~kernel[7]).sum())}
+
+
 def k8_check(kind, got, ref):
     """K8's kernel outputs (got) against its plain version's (ref), as
     tuples of tensors in the same order, by the tolerance of each kind:
@@ -483,6 +608,25 @@ def bench_k8(device, smi):
                     samples=K8D_UNIFORM, targets=K8D_IMP)
 
 
+def bench_k9_k10(device, smi, which):
+    from volsurfs_tpu_torch.ops import samplers as SP
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+
+    if "k10" in which and hasattr(SP, "contracted_bg_samples"):
+        for shape, (R, N, jit) in K10_CASES.items():
+            args = k10_case(device, R, N, jit)
+            _bench_line("k10_bg_samples", lambda: SP.contracted_bg_samples(*args), smi,
+                        shape=shape, rays=R, samples=N)
+    if "k9" in which and hasattr(ST, "sphere_trace_step"):
+        for grid in (False, True):
+            rays_o, rays_d, sdf, space, state = k9_case(device, grid=grid)
+            sdf1 = sdf(rays_o + state[0][:, None] * rays_d)[:, 0].contiguous()
+            _bench_line("k9_sphere_trace_step",
+                        lambda: ST.sphere_trace_step(tuple(x.clone() for x in state), sdf1,
+                                                     rays_o, rays_d, space),
+                        smi, rays=rays_o.shape[0], grid=grid)
+
+
 def _bench_line(bench, fn, smi, **fields):
     split = device_times(fn)
     print(json.dumps({"bench": bench, **fields, "ms": time_ms(fn),
@@ -529,7 +673,8 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA card")
-    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6", "k7", "k8"}
+    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k6", "k7", "k8", "k9",
+                                                             "k10"}
     device = torch.device("cuda")
     smi = card()
     print(smi, flush=True)
@@ -553,6 +698,7 @@ def main(argv=None):
                         shape=shape)
     if "k8" in which:
         bench_k8(device, smi)
+    bench_k9_k10(device, smi, which)
 
 
 if __name__ == "__main__":

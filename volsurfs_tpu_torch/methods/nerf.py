@@ -1,6 +1,5 @@
 """``nerf`` method: an occupancy-pruned volumetric density field.
-Counterpart of volsurfs_tpu/methods/nerf.py with a white or black
-background.
+Counterpart of volsurfs_tpu/methods/nerf.py.
 
 A train step samples each ray inside the occupied space of the occupancy
 grid (kernel K7), refines the samples by one round of importance sampling
@@ -8,7 +7,10 @@ on the density (without gradients; kernel K8d, then K8a merges the new
 depths into the uniform ones), evaluates the density and the SH colour
 field at the samples (the permutohedral encoder, kernel K6) and composites
 them with NeRF alphas, clip(1 - exp(-sigma dt), 0, 1), whose transmittance
-scan is kernel K8b's. The background takes the scan's ``bg_transmittance``.
+scan is kernel K8b's. The background takes the scan's ``bg_transmittance``:
+a constant colour, or with ``bg_color`` None (the default) or "trained" the
+``NerfHash`` field over the contracted space (``render_contracted_bg``,
+kernel K10's samples, jittered by a draw after the samplers' in training).
 The occupancy refresh evaluates the density at jittered voxel centres, keeps
 the larger of it and 0.8 times the old value, and marks a voxel occupied
 above a density of 1e-4.
@@ -18,9 +20,6 @@ the sparsity term's random points and the refresh's voxel jitter) are drawn
 from ``self.generator`` in JAX's order, by ``_uniform``, the bounding
 primitive's ``get_random_points_inside`` and the grid's
 ``get_grid_samples``.
-
-Not ported: the trained background (``NerfHash`` with
-``render_contracted_bg``), ROADMAP.md Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -30,7 +29,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from volsurfs_tpu_torch.methods.base import grad_norms, make_optimizer
+from volsurfs_tpu_torch.methods.base import (grad_norms, make_background, make_optimizer,
+                                             render_background)
 from volsurfs_tpu_torch.methods.volsurfs import resolve_device
 from volsurfs_tpu_torch.models.fields import RGB, Density
 from volsurfs_tpu_torch.ops import raycast as RC
@@ -39,9 +39,6 @@ from volsurfs_tpu_torch.ops import samples as TS
 from volsurfs_tpu_torch.ops import volume_rendering as VR
 from volsurfs_tpu_torch.ops.occupancy import make_grid
 from volsurfs_tpu_torch.utils import losses as L
-
-NOT_PORTED_ITEM = "ROADMAP.md Queue 1 item 5"
-
 
 class NeRF:
     method_name = "nerf"
@@ -54,7 +51,7 @@ class NeRF:
         self,
         hyper_params,
         bounding_primitive,
-        bg_color: Optional[str] = "white",
+        bg_color: Optional[str] = None,
         occupancy_res: int = 256,
         device="cuda",
         seed: int = 0,
@@ -64,14 +61,6 @@ class NeRF:
         self.bounding_primitive = bounding_primitive
         self.occupancy_res = occupancy_res
         self.radius = radius = float(bounding_primitive.get_radius())
-        if bg_color == "white":
-            self.bg_color = torch.ones(1, 3, device=self.device)
-        elif bg_color == "black":
-            self.bg_color = torch.zeros(1, 3, device=self.device)
-        else:
-            raise NotImplementedError(
-                f"bg_color {bg_color!r}: the trained background (NerfHash) is not ported "
-                f"({NOT_PORTED_ITEM})")
 
         generator = torch.Generator().manual_seed(seed)
         density = Density(mlp_layers_dims=tuple(hp.density_mlp_layers_dims),
@@ -86,7 +75,11 @@ class NeRF:
                   geom_feat_dep=hp.rgb_geom_feat_dep, in_geom_feat_size=hp.geom_feat_size,
                   nr_iters_for_c2f=hp.rgb_nr_iters_for_c2f, bb_sides=radius * 2.0,
                   mlp_dtype="bfloat16" if hp.use_grad_scaler else None, generator=generator)
-        self.models = nn.ModuleDict({"density": density, "rgb": rgb}).to(self.device)
+        self.bg_color, bg = make_background(bg_color, hp, self.device, generator)
+        models = {"density": density, "rgb": rgb}
+        if bg is not None:
+            models["bg"] = bg
+        self.models = nn.ModuleDict(models).to(self.device)
         self.optimizer, self.scheduler = make_optimizer(hp, self.models.parameters(),
                                                         warmup_start_iter=0)
         self.grid = None
@@ -147,8 +140,7 @@ class NeRF:
         weights_sum, _ = VR.sum_over_rays(weights, samples.mask)
         rgb_fg = VR.integrate(rgb_samples, weights, samples.mask)
         depth_fg = VR.integrate(samples.z[..., None], weights, samples.mask)
-        rgb_bg = self.bg_color.expand_as(rgb_fg)
-        depth_bg = raycast["t_far"]
+        rgb_bg, depth_bg = render_background(self, raycast, rays_o.shape[0], iter_nr, train)
         return {
             "rgb": rgb_fg + bg_transmittance * rgb_bg,
             "rgb_fg": rgb_fg,

@@ -1,6 +1,5 @@
 """``offsets_surfs`` method: a main SDF and k offset level-set surfaces.
-Counterpart of volsurfs_tpu/methods/offsets_surfs.py with a white or black
-background.
+Counterpart of volsurfs_tpu/methods/offsets_surfs.py.
 
 ``OffsetsSDF``'s shared encoder predicts the main SDF and, through its eps
 heads, the offsets of the other surfaces. All K surfaces are rendered from
@@ -25,8 +24,11 @@ loss does not reach it, as optax does.
 
 Random numbers come from ``self.generator`` in JAX's order, through
 ``_uniform``, ``_normal`` and the bounding primitive's
-``get_random_points_inside``. Not ported: the trained background
-(``NerfHash``), ROADMAP.md Queue 1 item 5.
+``get_random_points_inside``. The background is a constant colour, or
+with ``bg_color`` None (the default) or "trained" the ``NerfHash`` field
+over the contracted space (``render_contracted_bg``: kernel K10's samples,
+jittered by a draw after the samplers' in training), trained in every
+phase that renders.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from volsurfs_tpu_torch.methods.base import grad_norms, make_optimizer
+from volsurfs_tpu_torch.methods.base import (grad_norms, make_background, make_optimizer,
+                                             render_background)
 from volsurfs_tpu_torch.methods.volsurfs import resolve_device
 from volsurfs_tpu_torch.models.field_utils import get_fields_gradients, get_sdf_curvature
 from volsurfs_tpu_torch.models.fields import RGB, OffsetsSDF
@@ -52,9 +55,6 @@ from volsurfs_tpu_torch.utils.schedules import (
     logistic_distribution_stdev,
     map_range_val,
 )
-
-NOT_PORTED_ITEM = "ROADMAP.md Queue 1 item 5"
-
 
 def get_offsets_gt(nr_outer_surfs: int, nr_inner_surfs: int, delta_surfs: float,
                    device=None):
@@ -73,7 +73,7 @@ class OffsetsSurfs:
         self,
         hyper_params,
         bounding_primitive,
-        bg_color: Optional[str] = "white",
+        bg_color: Optional[str] = None,
         occupancy_res: int = 256,
         device="cuda",
         seed: int = 0,
@@ -86,14 +86,6 @@ class OffsetsSurfs:
         self.nr_inner_surfs, self.nr_outer_surfs = hp.nr_inner_surfs, hp.nr_outer_surfs
         self.nr_surfs = hp.nr_inner_surfs + hp.nr_outer_surfs + 1
         self.main_surf_idx = hp.nr_inner_surfs
-        if bg_color == "white":
-            self.bg_color = torch.ones(1, 3, device=self.device)
-        elif bg_color == "black":
-            self.bg_color = torch.zeros(1, 3, device=self.device)
-        else:
-            raise NotImplementedError(
-                f"bg_color {bg_color!r}: the trained background (NerfHash) is not ported "
-                f"({NOT_PORTED_ITEM})")
         # with one surface the per-surface fields are the shared ones: JAX
         # builds one model of each, rgb_0 and alpha_0, either way (base_1.cfg
         # sets both flags)
@@ -127,12 +119,16 @@ class OffsetsSurfs:
                        mlp_dtype="bfloat16" if hp.use_grad_scaler else None,
                        generator=generator)
 
-        self.models = nn.ModuleDict({
+        models = {
             "sdfs": sdfs,
             "rgb_0": appearance(3, hp.rgb_view_dep, hp.rgb_normal_dep, hp.rgb_geom_feat_dep),
             "alpha_0": appearance(1, hp.transp_view_dep, hp.transp_normal_dep,
                                   hp.transp_geom_feat_dep),
-        }).to(self.device)
+        }
+        self.bg_color, bg = make_background(bg_color, hp, self.device, generator)
+        if bg is not None:
+            models["bg"] = bg
+        self.models = nn.ModuleDict(models).to(self.device)
         self.optimizer, self.scheduler = make_optimizer(
             hp, self.models.parameters(), warmup_start_iter=hp.color_init_phase_end_iter)
         self.grid = None
@@ -300,7 +296,7 @@ class OffsetsSurfs:
         bg_transmittance = transmittances[:, -1]
         blending_weights = surfs_T * alpha_o2i
         rgb_fg = torch.sum(rgb_o2i * blending_weights, dim=1)
-        rgb_bg = self.bg_color.expand_as(rgb_fg)
+        rgb_bg, _ = render_background(self, raycast, R, iter_nr, train)
         return {
             "rgb": rgb_fg + rgb_bg * bg_transmittance,
             "rgb_fg": rgb_fg,

@@ -1,6 +1,5 @@
 """``surf`` method: NeuS-style single-SDF surface reconstruction.
-Counterpart of volsurfs_tpu/methods/surf.py with a white or black
-background.
+Counterpart of volsurfs_tpu/methods/surf.py.
 
 A train step samples each ray inside the occupied space of the occupancy
 grid (kernel K7), refines the samples by two rounds of SDF importance
@@ -18,9 +17,14 @@ from ``self.generator`` in JAX's order, by ``_uniform`` and ``_normal`` and
 the bounding primitive's ``get_random_points_inside``.
 
 The colour field is ``ColorSH`` (``appearance_predict_sh_coeffs``) or
-``RGB``. Not ported: the trained background (``NerfHash`` with
-``render_contracted_bg``) and the sphere-traced render (K9), ROADMAP.md
-Queue 1 item 5; RGB's ``LipshitzMLP`` likewise.
+``RGB`` (its ``LipshitzMLP`` waits for ROADMAP.md Queue 1 item 5, part 2).
+The background is a constant colour, or with ``bg_color`` None (the
+default) or "trained" the ``NerfHash`` field over the contracted space
+(``methods/base.py::render_contracted_bg``, which JAX keeps here: kernel
+K10's samples, jittered by a draw of ``_uniform`` in training, after the
+samplers'). The sphere-traced render
+(``render_rays_sphere_traced``, ``make_render_fn(sphere_traced=True)``)
+marches the SDF with kernel K9 and shades once at the hits.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from volsurfs_tpu_torch.methods.base import grad_norms, make_optimizer
+from volsurfs_tpu_torch.methods.base import (grad_norms, make_background, make_optimizer,
+                                             render_background)
 from volsurfs_tpu_torch.methods.volsurfs import resolve_device
 from volsurfs_tpu_torch.models.field_utils import get_field_gradients, get_sdf_curvature
 from volsurfs_tpu_torch.models.fields import RGB, SDF, ColorSH
@@ -39,12 +44,10 @@ from volsurfs_tpu_torch.ops import raycast as RC
 from volsurfs_tpu_torch.ops import samplers as SP
 from volsurfs_tpu_torch.ops import volume_rendering as VR
 from volsurfs_tpu_torch.ops.occupancy import make_grid
+from volsurfs_tpu_torch.ops.sphere_tracing import sphere_trace
 from volsurfs_tpu_torch.utils import losses as L
 from volsurfs_tpu_torch.utils.math import safe_norm, safe_normalize
 from volsurfs_tpu_torch.utils.schedules import get_logistic_beta_from_variance, map_range_val
-
-NOT_PORTED_ITEM = "ROADMAP.md Queue 1 item 5"
-
 
 class Surf:
     method_name = "surf"
@@ -54,7 +57,7 @@ class Surf:
         self,
         hyper_params,
         bounding_primitive,
-        bg_color: Optional[str] = "white",
+        bg_color: Optional[str] = None,
         init_sphere_radius: float = 0.3,
         occupancy_res: int = 256,
         device="cuda",
@@ -66,14 +69,6 @@ class Surf:
         self.init_sphere_radius = init_sphere_radius
         self.occupancy_res = occupancy_res
         self.radius = radius = float(bounding_primitive.get_radius())
-        if bg_color == "white":
-            self.bg_color = torch.ones(1, 3, device=self.device)
-        elif bg_color == "black":
-            self.bg_color = torch.zeros(1, 3, device=self.device)
-        else:
-            raise NotImplementedError(
-                f"bg_color {bg_color!r}: the trained background (NerfHash) is not ported "
-                f"({NOT_PORTED_ITEM})")
 
         generator = torch.Generator().manual_seed(seed)
         sdf = SDF(mlp_layers_dims=tuple(hp.sdf_mlp_layers_dims),
@@ -92,7 +87,11 @@ class Surf:
         else:
             rgb = RGB(view_dep=hp.rgb_view_dep, use_lipshitz_mlp=hp.rgb_use_lipshitz_mlp,
                       **colour)
-        self.models = nn.ModuleDict({"sdf": sdf, "rgb": rgb}).to(self.device)
+        self.bg_color, bg = make_background(bg_color, hp, self.device, generator)
+        models = {"sdf": sdf, "rgb": rgb}
+        if bg is not None:
+            models["bg"] = bg
+        self.models = nn.ModuleDict(models).to(self.device)
         self.optimizer, self.scheduler = make_optimizer(
             hp, self.models.parameters(), warmup_start_iter=hp.init_phase_end_iter)
         self.grid = None
@@ -192,8 +191,7 @@ class Surf:
         depth_fg = VR.integrate(samples.z[..., None], weights, samples.mask)
         pred_normals = VR.integrate(normals, weights, samples.mask)
 
-        rgb_bg = self.bg_color.expand_as(rgb_fg)
-        depth_bg = raycast["t_far"]
+        rgb_bg, depth_bg = render_background(self, raycast, rays_o.shape[0], iter_nr, train)
         return {
             "rgb": rgb_fg + rgb_bg * bg_transmittance,
             "rgb_fg": rgb_fg,
@@ -318,16 +316,49 @@ class Surf:
         grid = grid.update_values(sdf_abs, decay=0.0)
         self.grid = grid.update_occupancy_with_sdf(beta, occupancy_thresh=1e-4)
 
+    def render_rays_sphere_traced(self, rays_o, rays_d, iter_nr=None, max_st_steps: int = 24,
+                                  converged_dist_tresh: float = 1e-3,
+                                  min_step: float = 8e-3) -> dict:
+        """Test-time surface render: sphere trace the SDF (lockstep, kernel
+        K9 a step; grid-assisted with the occupancy grid), shade once at
+        the hits, and take the background (unjittered) elsewhere. Without
+        autograd. ``self.last_trace_steps`` keeps the trace's steps."""
+        iter_nr = self.iter_nr if iter_nr is None else iter_nr
+        with torch.no_grad():
+            raycast = RC.intersect_bounding_primitive(self.bounding_primitive, rays_o, rays_d)
+            trace = sphere_trace(lambda p: self._sdf(p, iter_nr), rays_o, rays_d,
+                                 self.bounding_primitive, nr_sphere_traces=max_st_steps,
+                                 sdf_converged_tresh=converged_dist_tresh,
+                                 occupancy_grid=self.grid, min_step=min_step)
+            self.last_trace_steps = trace["steps"]
+            hit = trace["is_hit"][:, None]
+            pos = trace["positions"]
+            _, geom_feat, grad = self._sdf_with_grad(pos, iter_nr)
+            normals = safe_normalize(grad)
+            rgb_surf = self.models["rgb"](pos, rays_d, normals, geom_feat, iter_nr)
+            weights_sum = hit.float()
+            rgb_bg, depth_bg = render_background(self, raycast, rays_o.shape[0], iter_nr,
+                                                 train=False)
+        return {
+            "rgb": torch.where(hit, rgb_surf, rgb_bg),
+            "rgb_fg": torch.where(hit, rgb_surf, 0.0),
+            "depth": torch.where(hit, trace["z"], depth_bg),
+            "normals": torch.where(hit, normals, 0.0),
+            "weights_sum": weights_sum,
+            "bg_transmittance": 1.0 - weights_sum,
+        }
+
     def make_render_fn(self, sphere_traced: bool = False):
-        """fn(rays_o, rays_d) -> {"rgb", "depth", "normals", "weights_sum"},
-        the volumetric render at the method's iter_nr, without autograd."""
-        if sphere_traced:
-            raise NotImplementedError(
-                f"the sphere-traced render (K9) is not ported ({NOT_PORTED_ITEM})")
+        """fn(rays_o, rays_d) -> {"rgb", "depth", "normals", "weights_sum"}
+        at the method's iter_nr, without autograd: the volumetric render, or
+        with sphere_traced the sphere-traced one."""
 
         def render(rays_o, rays_d):
-            with torch.no_grad():
-                res = self.render_rays(rays_o, rays_d, self.iter_nr, train=False)
+            if sphere_traced:
+                res = self.render_rays_sphere_traced(rays_o, rays_d, self.iter_nr)
+            else:
+                with torch.no_grad():
+                    res = self.render_rays(rays_o, rays_d, self.iter_nr, train=False)
             return {k: res[k] for k in ("rgb", "depth", "normals", "weights_sum")}
 
         return render

@@ -1,15 +1,19 @@
 """``volsurfs`` method: appearance training on k extracted mesh shells.
 
 Counterpart of volsurfs_tpu/methods/volsurfs.py for the neural-texture
-branch with a white or black background. Every ray is traced against all k
-shells (ordered inner -> outer) in one ``trace_all`` (kernel K2 on the
-card); hit barycentrics give UVs; per-shell SH neural textures give rgb
-and alpha, whose hash-table gradients go through kernel K1; the shells are
-composited outer -> inner in float16.
+branch. Every ray is traced against all k shells (ordered inner -> outer)
+in one ``trace_all`` (kernel K2 on the card); hit barycentrics give UVs;
+per-shell SH neural textures give rgb and alpha, whose hash-table
+gradients go through kernel K1; the shells are composited outer -> inner
+in float16. The background is a constant colour, or with ``bg_color`` None
+(the default) or "trained" the ``NerfHash`` field over the contracted space
+(``render_contracted_bg``: kernel K10's samples behind the bounding
+primitive, jittered in training by a draw of ``self.generator``), which
+enters the float16 composite as JAX's does.
 
 Parameters keep the JAX names: ``rgb_{i}`` and ``alpha_{i}`` are the
 per-shell ``SHNeuralTextures`` (one shared ``rgb_0`` / ``alpha_0`` when
-colors or alphas are not independent).
+colors or alphas are not independent); ``bg`` is the background's field.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from volsurfs_tpu_torch.methods.base import make_optimizer
+from volsurfs_tpu_torch.methods.base import make_background, make_optimizer, render_background
 from volsurfs_tpu_torch.models.textures import SHNeuralTextures
 from volsurfs_tpu_torch.ops import bvh as B
 from volsurfs_tpu_torch.ops import raycast as RC
@@ -45,7 +49,7 @@ class VolSurfs:
         self,
         hyper_params,
         meshes: Sequence[tuple],  # [(verts, faces, uvs), ...] inner -> outer
-        bg_color: Optional[str] = "white",
+        bg_color: Optional[str] = None,
         bounding_primitive=None,
         device="cuda",
         seed: int = 0,
@@ -56,7 +60,8 @@ class VolSurfs:
         if self.nr_meshes < 1:
             raise ValueError("volsurfs needs at least one mesh")
         if not hp.using_neural_textures:
-            raise NotImplementedError("only the neural-texture branch is ported")
+            raise NotImplementedError("only the neural-texture branch is ported; the legacy "
+                                      "appearance waits for ROADMAP.md Queue 1 item 5, part 2")
         self.bounding_primitive = bounding_primitive or RC.make_bounding_sphere(1.0)
 
         self.tensor_meshes = [
@@ -70,15 +75,6 @@ class VolSurfs:
         self.nr_alpha_models = self.nr_meshes if hp.are_volsurfs_alphas_indep else 1
         # innermost mesh can be solid: no alpha model for mesh 0
         self.solid_inner = hp.is_inner_mesh_solid
-
-        if bg_color == "white":
-            self.bg_color = torch.ones(1, 3, device=self.device)
-        elif bg_color == "black":
-            self.bg_color = torch.zeros(1, 3, device=self.device)
-        else:
-            raise NotImplementedError(
-                f"bg_color {bg_color!r}: the trained background waits for the surf slice"
-            )
 
         generator = torch.Generator().manual_seed(seed)
         mlp_dtype = "bfloat16" if hp.use_grad_scaler else None
@@ -99,11 +95,18 @@ class VolSurfs:
 
         models = {f"rgb_{i}": textures(3) for i in range(self.nr_rgb_models)}
         models.update({f"alpha_{i}": textures(1) for i in range(self.nr_alpha_models)})
+        self.bg_color, bg = make_background(bg_color, hp, self.device, generator)
+        if bg is not None:
+            models["bg"] = bg
         self.models = nn.ModuleDict(models).to(self.device)
         self.optimizer, self.scheduler = make_optimizer(
             hp, self.models.parameters(), warmup_start_iter=0
         )
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.iter_nr = 0
+
+    def _uniform(self, shape):
+        return torch.rand(shape, generator=self.generator, device=self.device)
 
     # ---- rendering ---------------------------------------------------------
 
@@ -113,11 +116,14 @@ class VolSurfs:
     def _alpha_model(self, i):
         return self.models[f"alpha_{i if self.hp.are_volsurfs_alphas_indep else 0}"]
 
-    def render_rays(self, rays_o, rays_d) -> dict:
+    def render_rays(self, rays_o, rays_d, iter_nr=None, train: bool = False) -> dict:
         """Render rays [R, 3] through all shells; differentiable w.r.t. the
-        texture parameters."""
+        texture (and background) parameters. train jitters the
+        background's samples; iter_nr (the method's by default) sets the
+        background's coarse-to-fine window."""
         hp = self.hp
         R = rays_o.shape[0]
+        iter_nr = self.iter_nr if iter_nr is None else iter_nr
         hits_all = B.trace_all(self.stacked_bvh, rays_o, rays_d)
 
         surfs_rgb, surfs_alpha, surfs_hits = [], [], []
@@ -166,7 +172,11 @@ class VolSurfs:
         blending = surfs_T * alpha_o2i
         rgb_fg = torch.sum(rgb_o2i * blending, dim=1)
 
-        rgb_bg = self.bg_color.expand(R, 3)
+        if "bg" in self.models:
+            raycast = RC.intersect_bounding_primitive(self.bounding_primitive, rays_o, rays_d)
+            rgb_bg, _ = render_background(self, raycast, R, iter_nr, train)
+        else:
+            rgb_bg = self.bg_color.expand(R, 3)
         rgb = (rgb_fg + bg_transmittance * rgb_bg.half()).float()
         return {
             "rgb": rgb,
@@ -186,7 +196,7 @@ class VolSurfs:
 
     def _loss(self, batch):
         hp = self.hp
-        pred_rgb = self.render_rays(batch["rays_o"], batch["rays_d"])["rgb"]
+        pred_rgb = self.render_rays(batch["rays_o"], batch["rays_d"], train=True)["rgb"]
         if hp.nr_training_rays_per_pixel > 1:
             pred_rgb = pred_rgb.reshape(-1, hp.nr_training_rays_per_pixel, 3).mean(1)
         if hp.is_training_masked:

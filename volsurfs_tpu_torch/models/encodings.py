@@ -82,7 +82,10 @@ def c2f_window(t, nr_levels: int, device=None):
 
 def _rescale_to_unit(points, half):
     """Points in the box of half-sides half [3] -> ([..., 3] in [0, 1]^3,
-    [...] out of bounds)."""
+    [...] out of bounds); without a box (half None) the points as they
+    are and no mask."""
+    if half is None:
+        return points, None
     out_of_bounds = torch.any((points <= -half) | (points >= half), dim=-1)
     return (points / half + 1.0) / 2.0, out_of_bounds
 
@@ -94,7 +97,9 @@ class PermutoEncoder(nn.Module):
     (at least 64). ``table`` [total_rows, 2] holds every level's rows, coarse
     to fine. Returns ``(feats, out_of_bounds)``, or with ``with_grads``
     ``(feats, dfeats [3, ..., D], out_of_bounds)``; feats are the windowed
-    level features, then the unit-cube point without its last element."""
+    level features, then the unit-cube point without its last element.
+    ``bb_sides=None`` takes the points as they are (the background's,
+    contracted into the unit ball), with no out-of-bounds mask (None)."""
 
     def __init__(self, input_dim: int = 3, nr_levels: int = 24, log2_hashmap_size: int = 18,
                  nr_feat_per_level: int = 2, coarsest_scale: float = 1.0,
@@ -131,14 +136,18 @@ class PermutoEncoder(nn.Module):
         W = np.zeros((3, (d + 1) * L), np.float32)
         for j in range(d + 1):
             W[:, j * L:(j + 1) * L] = E[j, :, None] / scales32[None, :]
-        half = np.broadcast_to(np.asarray(bb_sides, np.float32) / np.float32(2.0), (3,))
-        dunit_dp = np.float32(1.0) / (np.float32(2.0) * half)
+        if bb_sides is None:
+            half, dunit_dp = None, np.ones(3, np.float32)
+        else:
+            half = np.broadcast_to(np.asarray(bb_sides, np.float32) / np.float32(2.0), (3,))
+            dunit_dp = np.float32(1.0) / (np.float32(2.0) * half)
         ddiff = np.stack([np.stack([(E[j, k] / (d + 1) / scales32).astype(np.float32)
                                     * dunit_dp[k] for k in range(3)]) for j in range(d + 1)])
         self.register_buffer("W", torch.from_numpy(W), persistent=False)
         self.register_buffer("ddiff", torch.from_numpy(ddiff.astype(np.float32)),
                              persistent=False)
-        self.register_buffer("half_sides", torch.from_numpy(half.copy()), persistent=False)
+        self.register_buffer("half_sides", None if half is None else torch.from_numpy(half.copy()),
+                             persistent=False)
         self.register_buffer("dunit_dp", torch.from_numpy(dunit_dp.astype(np.float32)),
                              persistent=False)
         self.register_buffer("level_sizes", torch.tensor(self.sizes, dtype=torch.int32),
@@ -193,11 +202,12 @@ class PermutoEncoder(nn.Module):
 # encoders of the JAX package that the port does not have yet
 _NOT_PORTED_ENCODERS = ("none", "frequency", "spherical_harmonics", "spherical_gaussians",
                         "gridhash")
+NOT_PORTED_ITEM = "ROADMAP.md Queue 1 item 5, part 2"
 
 
 def get_encoder(encoding: str, generator: torch.Generator | None = None, **kwargs):
     """Encoder factory; only ``permutohash`` is ported (the others raise,
-    naming ROADMAP.md Queue 1 item 5)."""
+    naming ROADMAP.md Queue 1 item 5, part 2)."""
     if encoding == "permutohash":
         return PermutoEncoder(
             input_dim=kwargs.get("input_dim", 3),
@@ -208,5 +218,5 @@ def get_encoder(encoding: str, generator: torch.Generator | None = None, **kwarg
         )
     if encoding in _NOT_PORTED_ENCODERS:
         raise NotImplementedError(
-            f"encoding {encoding!r} is not ported to torch yet (ROADMAP.md Queue 1 item 5)")
+            f"encoding {encoding!r} is not ported to torch yet ({NOT_PORTED_ITEM})")
     raise NotImplementedError(f"unknown encoding {encoding}")

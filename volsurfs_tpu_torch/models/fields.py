@@ -1,10 +1,11 @@
 """Neural fields of the surf, offsets_surfs and nerf methods: ``SDF``,
-``OffsetsSDF``, ``Density``, ``RGB`` and ``ColorSH`` (counterpart of
-volsurfs_tpu/models/fields.py:24-375; RGB's ``LipshitzMLP`` and
-``NerfHash`` wait for their ROADMAP.md Queue 1 item).
+``OffsetsSDF``, ``Density``, ``RGB``, ``ColorSH`` and the background's
+``NerfHash`` (counterpart of volsurfs_tpu/models/fields.py:24-412; RGB's
+``LipshitzMLP`` waits for ROADMAP.md Queue 1 item 5, part 2).
 
 Submodules keep the flax names' order: ``encoder`` is flax's
-``PermutoEncoder_0`` and ``mlp`` its ``MLP_0`` (``convert.py``);
+``PermutoEncoder_0``, ``mlp`` its ``MLP_0`` and ``mlp_rgb`` its ``MLP_1``
+(``convert.py``);
 ``OffsetsSDF``'s submodules carry its flax ``setup()`` names as they are
 (``pos_encoder``, ``mlp_sdf``, ``mlp_eps_{i}``)."""
 
@@ -14,6 +15,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from volsurfs_tpu_torch.models.encodings import get_encoder
 from volsurfs_tpu_torch.models.mlp import MLP
@@ -204,7 +206,8 @@ class RGB(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         if use_lipshitz_mlp:
-            raise NotImplementedError("LipshitzMLP is not ported (ROADMAP.md Queue 1 item 5)")
+            raise NotImplementedError(
+                "LipshitzMLP is not ported (ROADMAP.md Queue 1 item 5, part 2)")
         self.sh_deg, self.view_dep, self.normal_dep = sh_deg, view_dep, normal_dep
         self.geom_feat_dep = geom_feat_dep and in_geom_feat_size > 0
         self.encoder = None
@@ -280,3 +283,34 @@ class ColorSH(nn.Module):
             return pred
         sh_coeffs = pred.reshape(*pred.shape[:-1], self.out_channels, num_sh_coeffs(self.sh_deg))
         return torch.sigmoid(sh_eval(sh_coeffs, samples_dirs, self.sh_deg))
+
+
+class NerfHash(nn.Module):
+    """The background field over the contracted space: position encoding
+    (24 levels, the points as they are with ``bb_sides=None``) -> MLP
+    64-64-64-(64 + 1) -> softplus density and 64 features; [gelu(features),
+    the SH basis of the direction (no gradient)] -> MLP 64-64-3 -> sigmoid
+    rgb. Returns (rgb [..., 3], density [..., 1])."""
+
+    def __init__(self, pos_encoder_type: str = "permutohash", sh_deg: int = 3,
+                 nr_feat_for_rgb: int = 64, nr_iters_for_c2f: int = 0, bb_sides=2.0,
+                 mlp_dtype: str | None = None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.sh_deg = sh_deg
+        self.nr_feat_for_rgb = nr_feat_for_rgb
+        self.encoder = get_encoder(pos_encoder_type, generator=generator, input_dim=3,
+                                   nr_levels=24, nr_iters_for_c2f=nr_iters_for_c2f,
+                                   bb_sides=bb_sides)
+        self.mlp = MLP(self.encoder.output_dim, (64, 64, 64, nr_feat_for_rgb + 1),
+                       last_layer_linear=True, dtype=mlp_dtype, generator=generator)
+        self.mlp_rgb = MLP(nr_feat_for_rgb + num_sh_coeffs(sh_deg), (64, 64, 3),
+                           last_layer_linear=True, dtype=mlp_dtype, generator=generator)
+
+    def forward(self, points, samples_dirs, iter_nr=None):
+        feats, _ = self.encoder(points, iter_nr)
+        dirs_enc = sh_basis(samples_dirs, self.sh_deg).detach()
+        feat_and_density = self.mlp(feats)
+        density = _softplus(feat_and_density[..., 0:1])
+        feat_rgb = feat_and_density[..., 1:self.nr_feat_for_rgb + 1]
+        x = torch.cat([F.gelu(feat_rgb, approximate="tanh"), dirs_enc], dim=-1)
+        return torch.sigmoid(self.mlp_rgb(x)), density

@@ -1,6 +1,6 @@
 """Linear + activation stack (counterpart of volsurfs_tpu/models/mlp.py::MLP,
 with its Jacobian tangents; ``LipshitzMLP`` waits for ROADMAP.md Queue 1
-item 5's ``RGB`` field)."""
+item 5, part 2)."""
 
 from __future__ import annotations
 

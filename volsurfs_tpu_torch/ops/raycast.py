@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from volsurfs_tpu_torch.utils.math import norm3
+
 
 def _on(cache: dict, t: torch.Tensor, device) -> torch.Tensor:
     """t on device, copied there once: a copy from the host waits for the
@@ -53,6 +55,12 @@ class BoundingSphere:
         dirs = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
         r = self.radius * uniforms ** (1.0 / 3.0)
         return _on(self._centers, self.center, normals.device)[None, :] + dirs * r
+
+    def contains(self, points):
+        """[N, 3] -> [N] bool: |p - center| <= radius (the norm rounded as
+        JAX's)."""
+        return norm3(points - _on(self._centers, self.center, points.device)[None, :]) \
+            <= self.radius
 
     def get_random_points_inside(self, generator: torch.Generator, nr_points: int):
         """nr_points uniform points inside the sphere, on the generator's
@@ -103,6 +111,11 @@ class BoundingBox:
         u = torch.rand(nr_points, 3, generator=generator, device=generator.device) - 0.5
         center, sides = self._center_sides(u.device)
         return center[None, :] + u * sides[None, :]
+
+    def contains(self, points):
+        """[N, 3] -> [N] bool: |p - center| <= sides / 2 on every axis."""
+        center, sides = self._center_sides(points.device)
+        return torch.all(torch.abs(points - center[None, :]) <= 0.5 * sides[None, :], dim=-1)
 
 
 def make_bounding_box(sides, center=(0.0, 0.0, 0.0)) -> BoundingBox:

@@ -1,7 +1,6 @@
-"""Foreground ray samples: uniform, and inside the occupied space of an
-occupancy grid (counterpart of volsurfs_tpu/ops/samplers.py:1-245; the
-background samplers wait for ROADMAP.md Queue 1 item 5's trained
-background).
+"""Ray samples: uniform, inside the occupied space of an occupancy grid,
+and the background's behind the bounding primitive (counterpart of
+volsurfs_tpu/ops/samplers.py).
 
 The occupied-space sampler is kernel K7 (``csrc/occupancy_sampler.cu``:
 each pass's grid reads in flight together; on grids whose extents are
@@ -22,19 +21,30 @@ for bit.
 
 ``importance_refine`` adds the NeuS samplers' two rounds of importance
 sampling to the occupied-space samples (K8c and K8a on the card).
+
+The background's samples (``compute_samples_bg``, inverse-depth spacing
+from the bounding primitive's far end to 100) are contracted into the unit
+ball (``contract_samples``, mip-NeRF 360's contraction at scale 2), where
+the background field lives. ``contracted_bg_samples`` does both in one
+launch of kernel K10 (``csrc/bg_samples.cu``) on a CUDA tensor and in the
+plain version ``bg_samples_reference`` (the functions above) on a CPU
+tensor; the two agree bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from volsurfs_tpu_torch import _build
 from volsurfs_tpu_torch.ops import samples as TS
 from volsurfs_tpu_torch.ops import volume_rendering as VR
 from volsurfs_tpu_torch.ops.samples import INVALID_Z, RaySamples, update_dt
+from volsurfs_tpu_torch.utils.math import norm3
 
 # launch counts: the CUDA kernel's and the plain version's
-launches = {"occupancy_sampler": 0, "occupancy_sampler_reference": 0}
+launches = {"occupancy_sampler": 0, "occupancy_sampler_reference": 0,
+            "bg_samples": 0, "bg_samples_reference": 0}
 
 
 def _plan_sample_counts(dist, min_dist_between_samples, max_nr_samples, min_nr_samples):
@@ -211,3 +221,123 @@ def importance_refine(uniform: RaySamples, sdfs_at, logistic_beta, nr_imp_sample
         imp, _ = TS.combine(imp1, imp2, min_dist_between_samples)
         final, _ = TS.combine(uniform, imp, min_dist_between_samples)
     return final
+
+
+# ---- the background's samples ---------------------------------------------------
+
+BG_T_FAR = 100.0  # where the background's samples end
+CONTRACTION_SCALE = 2.0
+
+
+def _norm3(x):
+    """|x| over the last axis [..., 3] -> [..., 1], as JAX's norm rounds it."""
+    return norm3(x)[..., None]
+
+
+def _inverse_depths(t_start, nr_samples: int, t_far: float):
+    """The un-jittered depths [R, N]: s = 1 - i / (N - 1), t = 1 / (s +
+    1e-6) - 1 + t_start, clamped to [t_start, t_far]."""
+    dev = t_start.device
+    # 1 / (N - 1) rounded to float32 once, as JAX's weak-typed scalar
+    delta_s = torch.tensor(1.0 / (nr_samples - 1), dtype=torch.float32, device=dev)
+    s = 1.0 - delta_s * torch.arange(nr_samples, dtype=torch.float32, device=dev)[None, :]
+    t = 1.0 / (s + 1e-6) - 1.0 + t_start
+    return torch.minimum(torch.maximum(t, t_start), torch.full_like(t_start, t_far))
+
+
+def compute_samples_bg(rays_o, rays_d, t_start, nr_samples_per_ray: int,
+                       t_far: float = BG_T_FAR, jitter=None) -> RaySamples:
+    """Background samples [R, N] with inverse-depth spacing from t_start
+    [R, 1] to t_far. jitter [R, N] (uniform draws in [0, 1), or None) moves
+    each middle sample toward the one before it: t_prev + (t - t_prev) u,
+    the first and last unmoved. max_dt is the largest gap of a row; dt as
+    ``update_dt`` gives a background ray (the last sample 1e10)."""
+    R, N = rays_o.shape[0], nr_samples_per_ray
+    t = _inverse_depths(t_start, N, t_far)
+    if jitter is not None:
+        t_prev = torch.cat([t_start.expand(R, 1), t[:, :-1]], dim=1)
+        jittered = t_prev + (t - t_prev) * jitter
+        i = torch.arange(N, device=t.device)[None, :]
+        t = torch.where((i > 0) & (i < N - 1), jittered, t)
+    dt = torch.diff(t, dim=1, prepend=t_start.expand(R, 1))
+    max_dt = torch.amax(dt, dim=1, keepdim=True)
+    out = RaySamples(z=t, dt=torch.zeros_like(t), mask=torch.ones_like(t, dtype=torch.bool),
+                     rays_o=rays_o, rays_d=rays_d, t_near=t_start.expand(R, 1),
+                     t_far=torch.full_like(t_start, t_far), max_dt=max_dt)
+    return update_dt(out, is_background=True)
+
+
+def contract_points(points, scale: float = CONTRACTION_SCALE):
+    """mip-NeRF 360's contraction: points with |scale p| <= 1 stay; the
+    others map to (2 - 1 / n) p / n, n = |scale p|, inside the ball of
+    radius 2 / scale."""
+    norm = _norm3(points * scale)
+    safe = torch.clamp(norm, min=1e-12)
+    factor = 2.0 - 1.0 / safe
+    return torch.where(norm > 1.0, factor * points / safe, points)
+
+
+def uncontract_points(points, scale: float = CONTRACTION_SCALE):
+    """The inverse of ``contract_points``."""
+    norm = _norm3(points * scale)
+    factor = 1.0 / torch.clamp(2.0 - norm, min=1e-12)
+    return torch.where(norm > 1.0, factor * points / torch.clamp(norm, min=1e-12), points)
+
+
+def contract_samples(samples: RaySamples, scale: float = CONTRACTION_SCALE):
+    """(contracted positions [R, S, 3], the samples with z the distance from
+    the ray's origin to the contracted point): that distance need not grow
+    along a ray, so ``update_dt`` clamps a negative gap to 0 (against the
+    uncontracted max_dt); nothing is sorted."""
+    cpos = contract_points(samples.positions(), scale)
+    cz = _norm3(cpos - samples.rays_o[:, None, :])[..., 0]
+    cz = torch.where(samples.mask, cz, INVALID_Z)
+    return cpos, update_dt(samples.replace(z=cz), is_background=True)
+
+
+def bg_samples_reference(rays_o, rays_d, t_start, nr_samples: int, jitter=None,
+                         t_far: float = BG_T_FAR):
+    """Plain version of ``contracted_bg_samples`` (same arguments and
+    results): ``compute_samples_bg``, then ``contract_samples``."""
+    launches["bg_samples_reference"] += 1
+    samples = compute_samples_bg(rays_o, rays_d, t_start, nr_samples, t_far, jitter)
+    cpos, c_samples = contract_samples(samples)
+    return cpos, c_samples.dirs(), c_samples, samples.z
+
+
+def contracted_bg_samples(rays_o, rays_d, t_start, nr_samples: int, jitter=None,
+                          t_far: float = BG_T_FAR):
+    """The background's samples of rays [R, 3] from t_start [R, 1] (the
+    bounding primitive's far end; 0 for a ray that misses it) to t_far,
+    contracted: (positions [R, N, 3] in the unit ball, directions [R, N, 3]
+    (the rays' own, expanded),
+    RaySamples of the contracted distances z [R, N] with their dt and the
+    uncontracted max_dt, the uncontracted depths [R, N]). jitter [R, N] in
+    [0, 1) or None (``compute_samples_bg``). No gradient flows to the rays."""
+    if not rays_o.is_cuda:
+        return bg_samples_reference(rays_o, rays_d, t_start, nr_samples, jitter, t_far)
+    dev = rays_o.device
+    R, N = rays_o.shape[0], nr_samples
+    rays_o, rays_d, t_start = (x.detach().contiguous() for x in (rays_o, rays_d, t_start))
+    checks = [("rays_o", rays_o, (R, 3)), ("rays_d", rays_d, (R, 3)), ("t_start", t_start, (R, 1))]
+    if jitter is not None:
+        jitter = jitter.contiguous()
+        checks.append(("jitter", jitter, (R, N)))
+    for name, t, shape in checks:
+        _build.check_tensor(name, t, torch.float32, shape, dev)
+    if N < 2:
+        raise ValueError(f"contracted_bg_samples: at least 2 samples a ray (got {N})")
+    cpos = torch.empty(R, N, 3, dtype=torch.float32, device=dev)
+    cz, dt, z = (torch.empty(R, N, dtype=torch.float32, device=dev) for _ in range(3))
+    max_dt = torch.empty(R, 1, dtype=torch.float32, device=dev)
+    status = _build.kernels().vs_bg_samples(
+        rays_o.data_ptr(), rays_d.data_ptr(), t_start.data_ptr(),
+        None if jitter is None else jitter.data_ptr(), float(np.float32(1.0 / (N - 1))),
+        t_far, cpos.data_ptr(), cz.data_ptr(), dt.data_ptr(), z.data_ptr(),
+        max_dt.data_ptr(), N, R, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "bg_samples")
+    launches["bg_samples"] += 1
+    c_samples = RaySamples(z=cz, dt=dt, mask=torch.ones(R, N, dtype=torch.bool, device=dev),
+                           rays_o=rays_o, rays_d=rays_d, t_near=t_start,
+                           t_far=torch.full_like(t_start, t_far), max_dt=max_dt)
+    return cpos, c_samples.dirs(), c_samples, z

@@ -17,9 +17,10 @@ nerf, offsets_surfs) has it refreshed every
 ``update_occupancy_every`` steps, before the step, as in JAX. As in JAX, the
 dynamic ray count acts only when the losses carry ``nr_samples_total``
 (surf's, nerf's and offsets_surfs' data steps do, volsurfs' do not). The CLI's
-``--models_path`` takes a surf run's models directory into offsets_surfs:
-its ``sdf.pt`` goes into the shared encoder and the main head
-(``OffsetsSurfs.load_main_sdf``). Not ported: the TPU compile-retry wrapper (nothing is compiled here),
+``--models_path`` takes a previous stage's models directory: a surf run's
+``sdf.pt`` goes into offsets_surfs' shared encoder and main head
+(``OffsetsSurfs.load_main_sdf``), and its ``bg.pt`` (the trained
+background) into any method that has one, as JAX's ``bg.msgpack``. Not ported: the TPU compile-retry wrapper (nothing is compiled here),
 data parallelism over a device mesh (``--data_parallel``, Queue 1 item 9),
 the distillation mix and the profiler hook.
 """
@@ -283,8 +284,8 @@ def main(argv=None):
     parser.add_argument("--runs_path", default=None, help="override paths cfg")
     parser.add_argument("--models_path", default=None,
                         help="models dir of a previous stage: offsets_surfs takes a surf "
-                             "run's sdf.pt from there (volsurfs would take its trained "
-                             "background, which is not ported: no effect)")
+                             "run's sdf.pt from there, and a method with a trained "
+                             "background its bg.pt")
     parser.add_argument("--meshes_path", default=None,
                         help="directory of .obj shells for volsurfs")
     parser.add_argument("--train_iters", type=int, default=None)
@@ -349,10 +350,16 @@ def main(argv=None):
     method = make_method(args.method, hp, make_bounding_sphere(mv_data.scene_radius),
                          mv_data.bg_color or data_params.bg_color, seed=args.seed,
                          device=device, **method_kwargs)
-    # cross-stage transfer: a surf run's SDF into offsets_surfs' main surface
-    sdf_path = os.path.join(args.models_path or "", "sdf.pt")
-    if args.method == "offsets_surfs" and args.models_path and os.path.exists(sdf_path):
-        method.load_main_sdf(torch.load(sdf_path, map_location="cpu", weights_only=True))
+    # cross-stage transfer: a surf run's SDF into offsets_surfs' main surface,
+    # a trained background into a method that has one
+    if args.models_path:
+        sdf_path = os.path.join(args.models_path, "sdf.pt")
+        if args.method == "offsets_surfs" and os.path.exists(sdf_path):
+            method.load_main_sdf(torch.load(sdf_path, map_location="cpu", weights_only=True))
+        bg_path = os.path.join(args.models_path, "bg.pt")
+        if "bg" in method.models and os.path.exists(bg_path):
+            method.models["bg"].load_state_dict(
+                torch.load(bg_path, map_location="cpu", weights_only=True))
     trainer = Trainer(method, mv_data, run_dir, seed=args.seed, train_params=train_params)
     if args.continue_training:
         trainer.load_checkpoint()

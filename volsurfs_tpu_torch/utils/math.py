@@ -21,6 +21,15 @@ def fma32(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def norm3(x):
+    """|x| over the last axis of [..., 3] -> [...], rounded as XLA:CPU's
+    jnp.linalg.norm: sqrt(fma(x2, x2, fma(x1, x1, x0 * x0))). The square
+    root is taken in float64 and rounded once: torch's float32 square root
+    on the CPU is not always the nearest float (1 ulp off on some inputs)."""
+    x0, x1, x2 = x[..., 0], x[..., 1], x[..., 2]
+    return torch.sqrt(fma32(x2, x2, fma32(x1, x1, x0 * x0)).double()).float()
+
+
 MASK32 = 0xFFFFFFFF
 
 
