@@ -9,10 +9,11 @@ OTHER_CHECKOUT is an unpacked tree of an earlier commit (for example
 ``git archive <commit> | tar -x -C _proof/parent``). The two run in the
 order other, this, this, other, each in its own process, with their logs
 in OUT_DIR; after each, ``python -m volsurfs_tpu_torch.kernel_bench k6
-k7 k8`` in the same tree (K6's forward without saving, and one lookup's
-forward and backward; K7 at the train steps' and a render chunk's rays;
-K8's kernels at the surf and offsets_surfs steps' and the surf eval
-chunk's shapes; all through the public wrappers). The
+k7 k8 k9 k10`` in the same tree (K6's forward without saving, and one
+lookup's forward and backward; K7 at the train steps' and a render chunk's
+rays; K8's kernels at the surf and offsets_surfs steps' and the surf eval
+chunk's shapes; K9's step and a whole trace of a 256^2 frame; K10 at its
+four path shapes; all through the public wrappers). The
 other tree is measured with this tree's timers: its
 ``volsurfs_tpu_torch/kernel_bench.py`` is replaced by this one's and its
 chip_smoke's ``profiled`` by this one's, so that both time and profile
@@ -42,7 +43,8 @@ PHASES = tuple('{"phase": "%s"' % p for p in (
     "baked_orbit_profile", "baked_quality", "k6_permuto", "surf_train", "surf_eval",
     "k7_occupancy_sampler", "surf_train_profile", "surf_stage_launches", "k8_volrender",
     "offsets_train",
-    "offsets_eval", "offsets_train_profile", "offsets_stage_launches")) + (
+    "offsets_eval", "offsets_train_profile", "offsets_stage_launches", "surf_bg_traced",
+    "k10_bg_samples", "k9_sphere_trace_step", "sphere_trace_loop")) + (
     '{"kernels"', '{"bench"')
 
 # runs the other tree's chip_smoke.main() with this tree's profiled() and
@@ -62,7 +64,8 @@ sys.exit(chip_smoke.main())
 
 def run(label, cmd, cwd, out_dir, i):
     log = os.path.join(out_dir, f"{i}_{label}.log")
-    bench = [sys.executable, "-m", "volsurfs_tpu_torch.kernel_bench", "k6", "k7", "k8"]
+    bench = [sys.executable, "-m", "volsurfs_tpu_torch.kernel_bench", "k6", "k7", "k8", "k9",
+             "k10"]
     with open(log, "w") as out, open(log + ".err", "w") as err:
         rc = subprocess.run(cmd, cwd=cwd, stdout=out, stderr=err, timeout=900).returncode
         rc = max(rc, subprocess.run(bench, cwd=cwd, stdout=out, stderr=err,

@@ -189,12 +189,18 @@ width of config/nerf/base.cfg:
    version);
 27. after the path's launches were read: K10 against its plain version at
    kernel_bench.K10_CASES' shapes (512 x 64, 2,048 x 64, 65,536 x 64 and
-   volsurfs' 512 x 32) bit for bit; K9 over a 24-step march of test camera
-   0's 65,536 rays, each step given the same SDF, at an analytic sphere
-   (without and with a 256^3 grid) and at the trained field and grid, bit
-   for bit; K6's forward at the background's contracted points, bit for
-   bit; the trace's loop with its host check against a fixed 24 steps;
-   times, bounds and registers;
+   volsurfs' 512 x 32) and at 512 x 48, jittered, bit for bit; K9's
+   compacted march of test camera 0's 65,536 rays (the active rays only)
+   against the compacted plain march over 24 steps, each step given the
+   same SDF by ray, at an analytic sphere (without and with a 256^3 grid)
+   and at the trained field and grid, bit for bit; K6's forward at the
+   background's contracted points, bit for bit; the compacted trace at the
+   trained field against JAX's lockstep loop with the plain step (t and
+   flags: at most K9_TRACE_HIT_SHARE of the rays hit in one only, t within
+   K9_TRACE_DT where both hit), each trace's device busy ms and launches
+   (the lockstep one with every ray stepped by K9, the trace's shape before
+   compaction), and the traced frame's psnr by each; times, bounds and
+   registers;
 29. the volsurfs stage at config/volsurfs/base_5.cfg's width on the
    committed sphere-scene shells with the trained background, carried
    from phase 24's model by pipeline._carry_bg (the main path
@@ -972,8 +978,8 @@ def _permuto_backward_cost(n, L, rows_read, total_rows, grads, points):
     return nbytes, flops
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def _bound(nbytes, flops, ops_per_s=F32_FLOPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2009,28 +2015,43 @@ def phase_surf_bg_profile(trainer):
          added_by_background=added, **prof)
 
 
+# the compacted trace against the lockstep one at the trained field: at
+# most this share of rays may hit in one and not the other, and where both
+# hit t within K9_TRACE_DT (the MLP, cuBLAS, may round a row otherwise at
+# another batch size)
+K9_TRACE_HIT_SHARE = 5e-4
+K9_TRACE_DT = 1e-5
+
+
 def phase_k9_k10(device, resources, trainer):
     """K10 and K9 against their plain versions (phase 27), after the path's
-    launches were read: K10 at each of kernel_bench.K10_CASES' shapes, bit
-    for bit; K9 over a 24-step march of the test camera's 256^2 rays, each
-    step given the same SDF, at the analytic sphere (without and with a
-    256^3 grid) and at the trained surf field with its grid, bit for bit;
-    K6's forward at the trained background's contracted points (both signs
-    of every coordinate), bit for bit; and the sphere trace's loop with its
-    host check against a fixed 24 steps. Times, bounds and registers.
-    Returns (K9's row at the trained field, K10's at surf's step)."""
+    launches were read: K10 at each of kernel_bench.K10_CASES' shapes and
+    K10_CHECK_CASES' (a row of 48 samples), bit for bit; K9's compacted
+    march of the test camera's 256^2 rays against the compacted plain
+    march, 24 steps, each step given the same SDF by ray, at the analytic
+    sphere (without and with a 256^3 grid) and at the trained surf field
+    with its grid, bit for bit, and a step's time at the march's state
+    after 6 steps; K6's forward at the trained background's contracted
+    points (both signs of every coordinate), bit for bit; and the trace at
+    the trained field, compacted against JAX's lockstep loop with the plain
+    step (t and flags, within K9_TRACE_HIT_SHARE and K9_TRACE_DT), with
+    both traces' device busy ms and launches (the lockstep one as every ray
+    stepped by K9) and the traced frame's psnr by each. Times, bounds and
+    registers. Returns (K9's row at the trained field, K10's at surf's
+    step)."""
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import permuto as P
     from volsurfs_tpu_torch.ops import samplers as SP
     from volsurfs_tpu_torch.ops import sphere_tracing as ST
+    from volsurfs_tpu_torch.utils.evaluation import psnr
 
     method = trainer.method
     k10_rows = {}
     registers = resources.get("bg_samples_kernel", {}).get("registers")
-    for case, (R, N, jitter) in kb.K10_CASES.items():
+    for case, (R, N, jitter) in {**kb.K10_CASES, **kb.K10_CHECK_CASES}.items():
         args = kb.k10_case(device, R, N, jitter)
         check = kb.k10_check(SP.contracted_bg_samples(*args), SP.bg_samples_reference(*args))
-        bound_ms, bound_by = _bound(*kb.k10_cost(R, N, jitter))
+        bound_ms, bound_by = _bound(*kb.k10_cost(R, N, jitter), kb.ISSUE_PER_S)
         fn = lambda: SP.contracted_bg_samples(*args)  # noqa: E731
         row = dict(kernel="bg_samples", case=case, rays=R, samples=N, jitter=jitter, **check,
                    ms=kb.time_ms(fn), device_ms=kb.device_ms(fn),
@@ -2064,15 +2085,16 @@ def phase_k9_k10(device, resources, trainer):
             st = ST.sphere_trace_step_reference(st, sdf(o + st[0][:, None] * d)[:, 0], o, d, sp)
         sdf1 = sdf(o + st[0][:, None] * d)[:, 0].contiguous()
         grid = sp.grid is not None
-        bound_ms, bound_by = _bound(*kb.k9_cost(o.shape[0], grid))
-        # the kernel steps a copy of that state in place, call after call
-        work = tuple(x.clone() for x in st)
-        fn = lambda: ST.sphere_trace_step(work, sdf1, o, d, sp)  # noqa: E731
+        fn, listed, next_rays = kb.k9_step_fn(st, sdf1, o, d, sp)
+        bound_ms, bound_by = _bound(*kb.k9_cost(listed, grid, next_rays), kb.ISSUE_PER_S)
+        active = ST.active_rays(st, o, d)[0]
+        plain_work = tuple(x.clone() for x in st)
+        plain_sdf = sdf1.index_select(0, active)
         row = dict(kernel="sphere_trace_step", case=case, rays=o.shape[0], grid=grid,
-                   active=int((~st[7]).sum()), **check, ms=kb.time_ms(fn),
+                   active=listed, next_active=next_rays, **check, ms=kb.time_ms(fn),
                    device_ms=kb.device_ms(fn),
-                   plain_ms=kb.time_ms(lambda: ST.sphere_trace_step_reference(st, sdf1, o, d, sp),
-                                       reps=5, warmup=1),
+                   plain_ms=kb.time_ms(lambda: ST.compact_step_reference(
+                       plain_work, active, plain_sdf, o, d, sp), reps=5, warmup=1),
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None, registers=registers,
                    spills=resources.get("sphere_trace_step_kernel", {}).get("spill_stores"))
         emit("k9_sphere_trace_step", **row)
@@ -2095,27 +2117,68 @@ def phase_k9_k10(device, resources, trainer):
         raise AssertionError(f"K6 at the background's points differs from its plain version "
                              f"in {differ} entries")
 
-    # the trace's loop: a host check of any(~converged) a step, or a fixed
-    # TRACE_STEPS steps (converged rays step as no-ops)
-    def trace(fixed):
-        sp = ST.trace_space(method.bounding_primitive, 1e-3, 8e-3, method.grid)
-        state = ST.trace_start(rays_o, rays_d, sp)
-        steps = 0
-        while steps < TRACE_STEPS and (fixed or bool(torch.any(~state[7]))):
-            state = ST.sphere_trace_step(state, field_sdf(rays_o + state[0][:, None] * rays_d)
-                                         [:, 0], rays_o, rays_d, sp)
+    # the trace at the trained field: compacted (the main path's), JAX's
+    # lockstep loop with the plain step, and that loop with every ray
+    # stepped by K9 (the shape of the trace before compaction)
+    def field(p):
+        return field_sdf(p)[:, 0]
+
+    def compacted():
+        return ST.march(field, rays_o, rays_d, space, TRACE_STEPS)
+
+    every = torch.arange(rays_o.shape[0], dtype=torch.int32, device=device)
+
+    def lockstep_kernel():
+        state, steps = ST.trace_start(rays_o, rays_d, space), 0
+        counts = torch.zeros(TRACE_STEPS, dtype=torch.int32, device=device)
+        while steps < TRACE_STEPS and bool(torch.any(~state[7])):
+            state = ST.sphere_trace_step(state, every, field(rays_o + state[0][:, None] * rays_d),
+                                         rays_o, rays_d, space, counts[steps:steps + 1])[0]
             steps += 1
         return state, steps
 
-    # t and the flags must agree (the no-op steps of converged rays move only
-    # their bracket's bookkeeping)
-    (a, n_check), (b, n_fixed) = trace(False), trace(True)
-    same = all(torch.equal(a[k], b[k]) for k in (0, 5, 6, 7))
-    emit("sphere_trace_loop", host_check_ms=kb.time_ms(lambda: trace(False), reps=5),
-         fixed_ms=kb.time_ms(lambda: trace(True), reps=5), steps_host_check=n_check,
-         steps_fixed=n_fixed, same_result=same)
-    if not same:
-        raise AssertionError("the fixed-step trace differs from the host-checked one")
+    (c, n_c), (lk, n_lk) = compacted(), lockstep_kernel()
+    ls, n_ls = ST.march_lockstep_reference(field, rays_o, rays_d, space, TRACE_STEPS)
+    hit_c, hit_ls = c[6] | c[5], ls[6] | ls[5]
+    both = hit_c & hit_ls
+    flags = (0, 5, 6, 7)
+    result = dict(
+        steps=n_c, steps_lockstep=n_ls,
+        same_result=n_c == n_ls and all(torch.equal(c[k], ls[k]) for k in flags),
+        hit_differ_share=float((hit_c != hit_ls).float().mean()),
+        max_abs_dt_both_hit=float((c[0] - ls[0]).abs()[both].max()) if bool(both.any()) else 0.0,
+        lockstep_kernel_same_as_plain=n_lk == n_ls and all(torch.equal(lk[k], ls[k])
+                                                           for k in flags),
+        bar_hit_share=K9_TRACE_HIT_SHARE, bar_dt=K9_TRACE_DT)
+    result["compacted_ms"] = kb.time_ms(compacted, reps=5)
+    result["lockstep_kernel_ms"] = kb.time_ms(lockstep_kernel, reps=5)
+    for name, fn in (("compacted", compacted), ("lockstep_kernel", lockstep_kernel)):
+        prof = profiled(fn, 3)
+        result[name] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "kernels",
+                                              "idle_share", "watched_ms_launches")}
+    result["busy_ratio_lockstep_to_compacted"] = (result["lockstep_kernel"]["device_busy_ms"]
+                                                  / result["compacted"]["device_busy_ms"])
+    # the traced frame's psnr, compacted and by the lockstep loop
+    test = trainer.mv_data["test"]
+    H, W = test.cameras[0].height, test.cameras[0].width
+
+    def frame_psnr():
+        out = method.render_rays_sphere_traced(rays_o, rays_d, method.iter_nr)
+        return psnr(test.rgbs[0], out["rgb"].cpu().numpy().reshape(H, W, 3))
+
+    result["psnr_compacted"] = frame_psnr()
+    compacted_march = ST.march  # sphere_trace's march, for this one frame
+    ST.march = ST.march_lockstep_reference
+    try:
+        result["psnr_lockstep"] = frame_psnr()
+    finally:
+        ST.march = compacted_march
+    result["psnr_delta"] = result["psnr_compacted"] - result["psnr_lockstep"]
+    emit("sphere_trace_loop", **result)
+    if not (result["hit_differ_share"] <= K9_TRACE_HIT_SHARE
+            and result["max_abs_dt_both_hit"] <= K9_TRACE_DT
+            and result["lockstep_kernel_same_as_plain"]):
+        raise AssertionError(f"the compacted trace is off the lockstep trace: {result}")
     return k9_row, k10_rows["surf_step"]
 
 
@@ -2376,7 +2439,8 @@ def main():
         replaces="volsurfs_tpu/ops/sphere_tracing.py:161", launches=surf_bg["sphere_trace_step"],
         launches_by_path={"surf_bg_stage": surf_bg["sphere_trace_step"]},
         plain_launches=surf_bg["sphere_trace_step_reference"],
-        shape=f"{k9['rays']}_rays_{k9['case']}", kernel="sphere_trace_step_kernel",
+        shape=f"{k9['rays']}_rays_{k9['active']}_active_{k9['case']}",
+        kernel="sphere_trace_step_kernel",
         registers=k9["registers"], entries_differ=k9["entries_differ"],
         **{k: k9[k] for k in keys}))
     kernels.append(dict(

@@ -101,6 +101,29 @@ def test_background_samples_match_jax(jitter, jax_draws):
     assert float(cpos.min()) < -0.5  # the field sees negative coordinates
 
 
+@pytest.mark.parametrize("n", [2, 33, 48])
+def test_background_samples_match_jax_at_other_widths(n, jax_draws):
+    """K10's plain version against compute_samples_bg then contract_samples
+    at 2 samples a ray (no middle sample to jitter) and at 33 and 48 (a
+    row not a multiple of a warp on the card), jittered: the depths, the
+    contracted points, distances, gaps and max_dt bit for bit."""
+    o, d = _rays(6)
+    t_far = _t_far(o, d)
+    u = np.random.default_rng(n).uniform(0, 1, (R, n)).astype(np.float32)
+    jax_draws.append(u)
+    ref = JSP.compute_samples_bg(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_far.numpy()), n,
+                                 key=jax.random.PRNGKey(0))
+    j_cpos, j_c = JSP.contract_samples(ref)
+    cpos, dirs, c_samples, z = SP.bg_samples_reference(torch.from_numpy(o), torch.from_numpy(d),
+                                                       t_far, n, torch.from_numpy(u))
+    np.testing.assert_array_equal(z.numpy(), np.asarray(ref.z))
+    np.testing.assert_array_equal(cpos.numpy(), np.asarray(j_cpos))
+    for name in ("z", "dt", "max_dt"):
+        np.testing.assert_array_equal(getattr(c_samples, name).numpy(),
+                                      np.asarray(getattr(j_c, name)), err_msg=name)
+    assert c_samples.z.shape == (R, n) and float(cpos.norm(dim=-1).max()) <= 1.0
+
+
 def test_contraction_matches_jax():
     """contract_points and uncontract_points, on points inside, outside and
     on the contraction's boundary |2p| = 1, and their round trip."""

@@ -1014,12 +1014,15 @@ def test_pipeline_on_the_card(cuda, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("R,N,jitter", [(512, 64, True), (65536, 64, True), (2048, 64, False),
-                                        (512, 32, True)])
+                                        (512, 32, True), (511, 2, True), (513, 33, True),
+                                        (512, 48, True), (1000, 96, False)])
 def test_bg_samples_kernel_matches_plain_bit_for_bit(cuda, R, N, jitter):
     """K10 at the paths' shapes (surf's step, a sphere-traced frame, an eval
-    chunk, volsurfs' step), a quarter of the rays starting at 0: the
-    contracted points and directions, distances, gaps, max_dt and depths
-    equal the plain version's bit for bit."""
+    chunk, volsurfs' step) and at rows that are not a warp (2 samples, two
+    rows a block and the last block half full; 33 and 48, a row's points
+    off a 16-byte boundary; 96, three warps a row), a quarter of the rays
+    starting at 0: the contracted points and directions, distances, gaps,
+    max_dt and depths equal the plain version's bit for bit."""
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.ops import samplers as SP
 
@@ -1040,13 +1043,17 @@ def test_bg_samples_kernel_rejects_wrong_inputs(cuda):
         SP.contracted_bg_samples(o, o, torch.zeros(4, 2, device=cuda), 8)
     with pytest.raises(ValueError, match="at least 2"):
         SP.contracted_bg_samples(o, o, torch.zeros(4, 1, device=cuda), 1)
+    with pytest.raises(ValueError, match="at most 1024"):
+        SP.contracted_bg_samples(o, o, torch.zeros(4, 1, device=cuda), 1025)
 
 
 @pytest.mark.parametrize("grid", [False, True])
 def test_sphere_trace_step_kernel_matches_plain_analytic(cuda, grid):
-    """A 24-step march of a 256^2 frame at an analytic sphere, without and
-    with a 256^3 grid (the coarse 4^3 level on): every step's state equals
-    the plain version's bit for bit, each step given the same SDF."""
+    """A 24-step compacted march of a 256^2 frame at an analytic sphere,
+    without and with a 256^3 grid (the coarse 4^3 level on): after every
+    step the state of every ray equals the compacted plain march's bit for
+    bit, and the lists hold the same rays and probe points, each step given
+    the same SDF by ray."""
     from volsurfs_tpu_torch import kernel_bench as kb
 
     rays_o, rays_d, sdf, space, state = kb.k9_case(cuda, grid=grid, pre_steps=0)
@@ -1056,10 +1063,11 @@ def test_sphere_trace_step_kernel_matches_plain_analytic(cuda, grid):
 
 @pytest.mark.parametrize("res", [0, 24, 22])
 def test_sphere_trace_step_kernel_matches_plain_surf_field(cuda, res):
-    """A 24-step march of a small random surf SDF (the full 24-level table,
-    an MLP 16-16) from a camera, without a grid and with its refreshed grid
-    at 24^3 (the coarse level on) and 22^3 (off): bit for bit, each step
-    given the same SDF."""
+    """A 24-step compacted march of a small random surf SDF (the full
+    24-level table, an MLP 16-16) from a camera, without a grid and with its
+    refreshed grid at 24^3 (the coarse level on) and 22^3 (off), against
+    the compacted plain march: bit for bit, each step given the same SDF by
+    ray."""
     from volsurfs_tpu_torch import kernel_bench as kb
     from volsurfs_tpu_torch.methods.surf import Surf
     from volsurfs_tpu_torch.ops import sphere_tracing as ST
@@ -1092,6 +1100,27 @@ def test_sphere_trace_step_kernel_matches_plain_surf_field(cuda, res):
 
     result = kb.k9_march_check(rays_o, rays_d, sdf, space, state, steps=24)
     assert result["ok"], result
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_compacted_traces_of_one_frame_agree(cuda, grid):
+    """Two compacted traces of one 256^2 frame at an analytic sphere
+    (without and with a 256^3 grid), whose lists come in the atomics'
+    order: the same t and flags and steps, bit for bit, and the same as
+    JAX's lockstep loop with the plain step (the SDF point by point)."""
+    from volsurfs_tpu_torch import kernel_bench as kb
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+
+    rays_o, rays_d, sdf, space, _ = kb.k9_case(cuda, grid=grid, pre_steps=0)
+    field = lambda p: sdf(p)[:, 0]  # noqa: E731
+    ST.launches["sphere_trace_step"] = 0
+    (a, n_a), (b, n_b) = (ST.march(field, rays_o, rays_d, space, 24) for _ in range(2))
+    assert ST.launches["sphere_trace_step"] == n_a + n_b
+    ref, n_ref = ST.march_lockstep_reference(field, rays_o, rays_d, space, 24)
+    assert n_a == n_b == n_ref
+    for k in (0, 5, 6, 7):
+        assert torch.equal(a[k], b[k]) and torch.equal(a[k], ref[k]), k
+    assert 0.05 < float((a[6] | a[5]).float().mean()) < 0.95
 
 
 @pytest.mark.parametrize("with_grad", [False, True])

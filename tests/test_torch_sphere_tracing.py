@@ -115,3 +115,53 @@ def test_render_rays_sphere_traced_matches_jax(pair):
                                    atol=1e-4, err_msg=name)
     np.testing.assert_allclose(got["normals"].numpy(), np.asarray(ref["normals"]), rtol=1e-3,
                                atol=1e-3)
+
+
+def _random_surf(res):
+    """A small random surf SDF (the full 24-level table, an MLP 16-16) and
+    its occupancy grid refreshed at res^3 (None without a grid)."""
+    from volsurfs_tpu_torch.methods.surf import Surf
+    from volsurfs_tpu_torch.params.hyper_params import HyperParamsSuRF
+
+    hp = HyperParamsSuRF(appearance_predict_sh_coeffs=True, sdf_mlp_layers_dims=[16, 16],
+                         geom_feat_size=8, rgb_mlp_layers_dims=[32, 32], sh_degree=2,
+                         init_phase_end_iter=10, first_phase_end_iter=100,
+                         use_occupancy_grid=res > 0)
+    method = Surf(hp, RC.make_bounding_sphere(1.0), bg_color="white", occupancy_res=res or 8,
+                  device="cpu", seed=3)
+    table = method.models["sdf"].encoder.table
+    with torch.no_grad():
+        table.copy_(torch.from_numpy(np.random.default_rng(res).uniform(
+            -0.05, 0.05, tuple(table.shape)).astype(np.float32)))
+    method.iter_nr = 30
+    if res:
+        method.update_occupancy_grid()
+
+    def sdf(p):
+        with torch.no_grad():
+            return method._sdf(p, method.iter_nr)[0][:, 0]
+
+    return sdf, method.grid if res else None
+
+
+@pytest.mark.parametrize("res", [0, 24, 22])
+@pytest.mark.parametrize("field", ["sphere", "surf"])
+def test_compacted_march_equals_the_lockstep_march(field, res):
+    """The compacted march (the active rays only, the plain step on the
+    CPU) against JAX's lockstep loop with the plain step: t, hit, refining
+    and converged of every ray and the steps bit for bit, without a grid
+    and with a 24^3 grid (the coarse 4^3 level on) and a 22^3 one (off)."""
+    o, d = (torch.from_numpy(x) for x in _rays(5, n=1024))
+    if field == "sphere":
+        grid = _grids(res)[0] if res else None
+        sdf = lambda p: _sdf_torch(p)[:, 0]  # noqa: E731
+    else:
+        sdf, grid = _random_surf(res)
+    space = ST.trace_space(RC.make_bounding_sphere(1.0), 1e-3, 8e-3, grid)
+    compact, steps = ST.march(sdf, o, d, space, 24)
+    lockstep, lockstep_steps = ST.march_lockstep_reference(sdf, o, d, space, 24)
+    assert steps == lockstep_steps
+    for k, name in ((0, "t"), (5, "refining"), (6, "hit"), (7, "converged")):
+        assert torch.equal(compact[k], lockstep[k]), name
+    hit = compact[6] | compact[5]
+    assert 0.05 < float(hit.float().mean()) < 0.95  # hits and misses both

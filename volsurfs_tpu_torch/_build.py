@@ -72,7 +72,7 @@ _KERNEL_SIGNATURES = {
     },
     "bg_samples.cu": {"vs_bg_samples": (_I, [_P] * 4 + [_F, _F] + [_P] * 5 + [_I, _LL, _P])},
     "sphere_trace.cu": {
-        "vs_sphere_trace_step": (_I, [_P] * 13 + [_F, _F, _F, _I, _I, _F, _I] + [_F] * 8
+        "vs_sphere_trace_step": (_I, [_P] * 17 + [_F, _F, _F, _I, _I, _F, _I] + [_F] * 8
                                  + [_LL, _P]),
     },
     "shade.cu": {

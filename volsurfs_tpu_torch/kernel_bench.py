@@ -37,7 +37,9 @@
   volsurfs' step (512 x 32), jittered where a train step jitters;
 - K9 ``sphere_trace_step`` (one march step; ``k9_case``) on a 256^2
   frame's rays at the sphere of the smoke scene, with and without a
-  256^3 grid, after 6 steps of the march.
+  256^3 grid, after 6 steps of the march: the step of the rays still
+  marching (an earlier tree's: of every ray), and a whole 24-step
+  ``sphere_trace`` (host wall ms, device busy ms, launches).
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 shape) with ``ms`` (median of CUDA-event timings of one call) and
@@ -53,6 +55,7 @@ on the same inputs and timers.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import subprocess
 import time
@@ -428,13 +431,21 @@ def k8d_case(device, R, S=K8D_UNIFORM, n=K8D_IMP, seed=0, count=None):
 # sphere-traced 256^2 frame, volsurfs' step (nr_samples_bg's default, 32)
 K10_CASES = {"surf_step": (512, 64, True), "eval_chunk": (2048, 64, False),
              "traced_frame": (65536, 64, False), "volsurfs_step": (512, 32, True)}
+# a row that is not a multiple of a warp, jittered: checked beside K10_CASES
+K10_CHECK_CASES = {"n48_jittered": (512, 48, True)}
 # operations of one sample in K10's plain version (ops/samplers.py): the
 # inverse depth (s, the reciprocal, the sums, the clamp: 7), the jitter's
 # lerp (3), the gap and its max (2), the point o + t d (6), the contraction
 # (the doubled point 3, the norm's product, two fmas and root 4, the clamp,
 # the factor 2, the scaled point 6, the select: 17), the distance (the
-# difference 3, the norm 4) and its gap (the difference, the clamps: 3)
+# difference 3, the norm 4) and its gap (the difference, the clamps: 3);
+# none an FMA, so a bound counts them at the card's issue rate
+# (ISSUE_PER_S), not at its float32 rate, which counts an FMA as two
 K10_OPS_A_SAMPLE = 49
+# instructions a second the card issues, a thread's each: 4 warp
+# instructions a clock on each of the 132 SMs, 128 lanes; the float32 rate
+# of 67 TFLOP/s halved (it counts an FMA, a lane a clock, as two)
+ISSUE_PER_S = 33.5e12
 
 
 def k10_case(device, R, N, jitter=True, seed=0):
@@ -464,7 +475,8 @@ def k10_cost(R, N, jitter):
     """(bytes, operations) of one K10 call: the rays, t_start and, where
     jittered, the jitter read once; the contracted points, the contracted
     distances, gaps and depths, and max_dt written once (the directions are
-    the rays', expanded: not written)."""
+    the rays', expanded: not written). The operations are issued
+    instructions: bound them at ISSUE_PER_S."""
     nbytes = R * (6 * 4 + 4 + 4) + R * N * ((4 if jitter else 0) + 3 * 4 + 3 * 4)
     return nbytes, R * N * K10_OPS_A_SAMPLE
 
@@ -511,33 +523,120 @@ def k9_case(device, res=256, grid=True, pre_steps=6, seed=0):
     return rays_o, rays_d, sdf, space, state
 
 
-def k9_cost(R, grid):
-    """(bytes, operations) of one K9 step over R rays: the rays (24 B), the
-    SDF (4) and the state (5 floats, 3 bools: 23) read once, the state
-    written once, and with a grid a ray's occupancy byte; ~150 operations a
-    ray (the plain version's)."""
-    nbytes = R * (24 + 4 + 23 + 23 + (1 if grid else 0))
-    return nbytes, R * 150
+# operations of one ray's march step in K9's plain version
+# (ops/sphere_tracing.py::sphere_trace_step_reference), issued
+# instructions: bound them at ISSUE_PER_S
+K9_OPS_A_RAY = 150
+
+
+def k9_cost(R, grid, next_rays=None):
+    """(bytes, operations) of one K9 step over R listed rays: a ray's index
+    (4 B), its SDF (4), its origin and direction (24) and its state (5
+    floats, 3 bools: 23) read once, the state written once, and with a grid
+    its occupancy byte; and for each of next_rays rays still marching its
+    index and probe point (16) written, and the count (4). next_rays None:
+    an earlier tree's step of every ray, which reads no index and writes
+    no list. K9_OPS_A_RAY a listed ray."""
+    if next_rays is None:
+        return R * (24 + 4 + 23 + 23 + (1 if grid else 0)), R * K9_OPS_A_RAY
+    nbytes = R * (4 + 4 + 24 + 23 + 23 + (1 if grid else 0)) + next_rays * 16 + 4
+    return nbytes, R * K9_OPS_A_RAY
+
+
+def k9_compacted():
+    """Whether this tree's K9 steps a list of active rays (an earlier
+    tree's steps every ray)."""
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+
+    return hasattr(ST, "compact_step_reference")
+
+
+def k9_step_fn(state, sdf1, rays_o, rays_d, space):
+    """fn() for timing one K9 step from state: on a tree that compacts, the
+    step of its active rays (sdf1 [N] by ray, the listed rays' taken), each
+    call with a zeroed count from a pool zeroed once (so that a call
+    launches K9 alone); on an earlier tree, the step of every ray. The step
+    updates a copy of state in place, call after call, as a trace does:
+    rays that converge stay listed, and step as no-ops. Returns (fn, the
+    rays listed, the rays the first step leaves marching)."""
+    from volsurfs_tpu_torch.ops import sphere_tracing as ST
+
+    work = tuple(x.clone() for x in state)
+    if not k9_compacted():
+        return (lambda: ST.sphere_trace_step(work, sdf1, rays_o, rays_d, space),
+                rays_o.shape[0], None)
+    active, _ = ST.active_rays(state, rays_o, rays_d)
+    listed = sdf1.index_select(0, active).contiguous()
+    pool = torch.zeros(4096, dtype=torch.int32, device=rays_o.device)
+    calls = itertools.count()
+
+    def fn():
+        slot = next(calls) % pool.shape[0]
+        return ST.sphere_trace_step(work, active, listed, rays_o, rays_d, space,
+                                    pool[slot:slot + 1])
+
+    fn()
+    next_rays = int(pool[0])
+    # the first call's step, in place: start the timed calls from state
+    for x, y in zip(work, state):
+        x.copy_(y)
+    return fn, active.shape[0], next_rays
 
 
 def k9_march_check(rays_o, rays_d, sdf, space, state, steps=24):
     """March steps from state with the kernel and the plain version side by
-    side, each step's SDF evaluated once at the kernel's points and given to
-    both: every state tensor bit for bit after every step. Returns
-    {"steps", "ok", "entries_differ", "max_abs_err", "active_after"}."""
+    side, each step's SDF evaluated once at the kernel's probe points and
+    given to both by ray: after every step every state tensor of every ray
+    bit for bit, and the same rays listed with the same probe points. On
+    an earlier tree (a step of every ray), every state tensor after every
+    step. Returns {"steps", "ok", "entries_differ", "max_abs_err",
+    "active_after"}."""
     from volsurfs_tpu_torch.ops import sphere_tracing as ST
 
     kernel = tuple(x.clone() for x in state)
     plain = tuple(x.clone() for x in state)
     differ, max_err = 0, 0.0
+
+    def compare(got, ref):
+        nonlocal differ, max_err
+        for g, r in zip(got, ref):
+            if g.numel():
+                differ += int((g != r).sum())
+                max_err = max(max_err, float((g.float() - r.float()).abs().max()))
+
+    if not k9_compacted():
+        for _ in range(steps):
+            sdf1 = sdf(rays_o + kernel[0][:, None] * rays_d)[:, 0].contiguous()
+            plain = ST.sphere_trace_step_reference(plain, sdf1, rays_o, rays_d, space)
+            kernel = ST.sphere_trace_step(kernel, sdf1, rays_o, rays_d, space)
+            compare(kernel, plain)
+        return {"steps": steps, "ok": differ == 0, "entries_differ": differ,
+                "max_abs_err": max_err, "active_after": int((~kernel[7]).sum())}
+
+    active_k, points_k = ST.active_rays(state, rays_o, rays_d)
+    active_p = active_k.clone()
+    by_ray = torch.zeros(rays_o.shape[0], dtype=torch.float32, device=rays_o.device)
+    taken = 0
     for _ in range(steps):
-        sdf1 = sdf(rays_o + kernel[0][:, None] * rays_d)[:, 0].contiguous()
-        plain = ST.sphere_trace_step_reference(plain, sdf1, rays_o, rays_d, space)
-        kernel = ST.sphere_trace_step(kernel, sdf1, rays_o, rays_d, space)
-        for g, r in zip(kernel, plain):
-            differ += int((g != r).sum())
-            max_err = max(max_err, float((g.float() - r.float()).abs().max()))
-    return {"steps": steps, "ok": differ == 0, "entries_differ": differ,
+        if not active_k.shape[0]:
+            break
+        sdf_k = sdf(points_k)[:, 0].contiguous()
+        by_ray[active_k.long()] = sdf_k
+        kernel, active_k, points_k, count_k = ST.sphere_trace_step(
+            kernel, active_k, sdf_k, rays_o, rays_d, space)
+        plain, active_p, points_p, _ = ST.compact_step_reference(
+            plain, active_p, by_ray[active_p.long()], rays_o, rays_d, space)
+        m = int(count_k)
+        active_k, points_k = active_k[:m], points_k[:m]
+        taken += 1
+        compare(kernel, plain)
+        # the lists, each in its order: the same rays, the same points
+        order_k, order_p = torch.argsort(active_k), torch.argsort(active_p)
+        if m != active_p.shape[0]:
+            differ += abs(m - active_p.shape[0]) + 1
+            break
+        compare((active_k[order_k], points_k[order_k]), (active_p[order_p], points_p[order_p]))
+    return {"steps": taken, "ok": differ == 0, "entries_differ": differ,
             "max_abs_err": max_err, "active_after": int((~kernel[7]).sum())}
 
 
@@ -621,10 +720,21 @@ def bench_k9_k10(device, smi, which):
         for grid in (False, True):
             rays_o, rays_d, sdf, space, state = k9_case(device, grid=grid)
             sdf1 = sdf(rays_o + state[0][:, None] * rays_d)[:, 0].contiguous()
-            _bench_line("k9_sphere_trace_step",
-                        lambda: ST.sphere_trace_step(tuple(x.clone() for x in state), sdf1,
-                                                     rays_o, rays_d, space),
-                        smi, rays=rays_o.shape[0], grid=grid)
+            fn, listed, next_rays = k9_step_fn(state, sdf1, rays_o, rays_d, space)
+            _bench_line("k9_sphere_trace_step", fn, smi, rays=rays_o.shape[0], grid=grid,
+                        listed=listed, next_rays=next_rays)
+            # a whole 24-step trace through the public entry point: its
+            # host wall ms (one host read a step), device busy ms and launches
+            bound = space.bounding_primitive
+
+            def trace():
+                return ST.sphere_trace(sdf, rays_o, rays_d, bound, 24, 1e-3, space.grid, 8e-3)
+
+            events, wall_ms, _ = profile_calls(trace, 3)
+            print(json.dumps({"bench": "k9_sphere_trace", "rays": rays_o.shape[0], "grid": grid,
+                              "steps": trace()["steps"], "wall_ms": wall_ms,
+                              "device_busy_ms": sum(e.device_time for e in events) / 3e3,
+                              "launches": len(events) / 3, "card": smi}), flush=True)
 
 
 def _bench_line(bench, fn, smi, **fields):

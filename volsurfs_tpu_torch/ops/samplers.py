@@ -26,9 +26,10 @@ The background's samples (``compute_samples_bg``, inverse-depth spacing
 from the bounding primitive's far end to 100) are contracted into the unit
 ball (``contract_samples``, mip-NeRF 360's contraction at scale 2), where
 the background field lives. ``contracted_bg_samples`` does both in one
-launch of kernel K10 (``csrc/bg_samples.cu``) on a CUDA tensor and in the
-plain version ``bg_samples_reference`` (the functions above) on a CPU
-tensor; the two agree bit for bit.
+launch of kernel K10 (``csrc/bg_samples.cu``: a thread a sample, each
+depth and contraction computed once, neighbours' values by shuffles) on a
+CUDA tensor and in the plain version ``bg_samples_reference`` (the
+functions above) on a CPU tensor; the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ from volsurfs_tpu_torch.utils.math import norm3
 # launch counts: the CUDA kernel's and the plain version's
 launches = {"occupancy_sampler": 0, "occupancy_sampler_reference": 0,
             "bg_samples": 0, "bg_samples_reference": 0}
+# the most samples a ray K10 takes: a row's samples are the threads of one
+# block (csrc/bg_samples.cu, kMaxSamples)
+BG_MAX_SAMPLES = 1024
 
 
 def _plan_sample_counts(dist, min_dist_between_samples, max_nr_samples, min_nr_samples):
@@ -313,7 +317,8 @@ def contracted_bg_samples(rays_o, rays_d, t_start, nr_samples: int, jitter=None,
     (the rays' own, expanded),
     RaySamples of the contracted distances z [R, N] with their dt and the
     uncontracted max_dt, the uncontracted depths [R, N]). jitter [R, N] in
-    [0, 1) or None (``compute_samples_bg``). No gradient flows to the rays."""
+    [0, 1) or None (``compute_samples_bg``). No gradient flows to the rays.
+    On the card N is 2 to ``BG_MAX_SAMPLES``."""
     if not rays_o.is_cuda:
         return bg_samples_reference(rays_o, rays_d, t_start, nr_samples, jitter, t_far)
     dev = rays_o.device
@@ -325,8 +330,9 @@ def contracted_bg_samples(rays_o, rays_d, t_start, nr_samples: int, jitter=None,
         checks.append(("jitter", jitter, (R, N)))
     for name, t, shape in checks:
         _build.check_tensor(name, t, torch.float32, shape, dev)
-    if N < 2:
-        raise ValueError(f"contracted_bg_samples: at least 2 samples a ray (got {N})")
+    if not 2 <= N <= BG_MAX_SAMPLES:
+        raise ValueError(f"contracted_bg_samples: at least 2 and at most {BG_MAX_SAMPLES} "
+                         f"samples a ray on the card, a row to a block (got {N})")
     cpos = torch.empty(R, N, 3, dtype=torch.float32, device=dev)
     cz, dt, z = (torch.empty(R, N, dtype=torch.float32, device=dev) for _ in range(3))
     max_dt = torch.empty(R, 1, dtype=torch.float32, device=dev)

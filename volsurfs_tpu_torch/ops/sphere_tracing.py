@@ -1,19 +1,25 @@
 """Sphere tracing of an SDF at test time (counterpart of
 volsurfs_tpu/ops/sphere_tracing.py).
 
-All rays step in lockstep, as JAX's ``lax.while_loop`` does: each step
-evaluates the SDF at every ray's point (the caller's field, the
-permutohedral lookup K6 and the MLP), then advances every ray by one march
-step, kernel K9 (``csrc/sphere_trace.cu``, a thread a ray) on a CUDA tensor
-and the plain version ``sphere_trace_step_reference`` (torch ops in JAX's
-order) on a CPU tensor; the two agree bit for bit. A marching ray steps by
-its SDF (at least ``min_step``), and with an occupancy grid at least to the
-exit of its empty voxel, or of its empty 4^3 block; a sign change between
-two probes brackets the surface, which false position then refines. The
-loop ends when every ray has converged or after ``nr_sphere_traces`` steps:
-the host reads ``any(~converged)`` after each step (one sync a step), so
-``steps`` is JAX's count and converged rays cost no further evaluations of
-the field once all have converged.
+JAX marches every ray in lockstep under ``lax.while_loop``, which needs
+static shapes. The port marches only the rays still going: the trace keeps
+an int32 list of their indices, and each step evaluates the SDF at their
+probe points alone (the caller's field, the permutohedral lookup K6 and the
+MLP) and advances each listed ray by one march step, kernel K9
+(``csrc/sphere_trace.cu``, a thread a listed ray, the state in place) on a
+CUDA tensor and its plain version ``compact_step_reference`` (gather the
+listed rays, ``sphere_trace_step_reference``'s torch ops in JAX's order,
+scatter back) on a CPU tensor. A step writes the next list, the rays still
+marching, with their next probe points; the two agree bit for bit but for
+the list's order, which on the card comes from atomics. A marching ray
+steps by its SDF (at least ``min_step``), and with an occupancy grid at
+least to the exit of its empty voxel, or of its empty 4^3 block; a sign
+change between two probes brackets the surface, which false position then
+refines. The loop ends when no ray is left or after ``nr_sphere_traces``
+steps: the host reads the list's length after each step (one sync a step),
+so ``steps`` is JAX's count. A converged ray is never stepped again: its t
+and flags are the lockstep march's (``march_lockstep_reference``, JAX's
+loop with the plain step, is the plain version of the whole march).
 
 The occupied box a grid gives the rays' start, and the coarse 4^3 pooling
 of the grid, are computed once a trace with torch ops.
@@ -154,24 +160,61 @@ def _primitive_args(bound):
     raise TypeError(f"sphere_trace_step: unknown bounding primitive {type(bound).__name__}")
 
 
-def sphere_trace_step(state, sdf1, rays_o, rays_d, space: TraceSpace):
-    """One march step of every ray: state (t, t_lo, s_lo, t_hi, s_hi [N]
-    float32, refining, hit, converged [N] bool), the SDF sdf1 [N] at the
-    rays' points rays_o + t rays_d. Returns the new state; the kernel
-    updates the state's tensors in place and returns them."""
+def active_rays(state, rays_o, rays_d):
+    """The rays of state that have not converged, int32 [M], and their
+    probe points o + t d [M, 3]."""
+    active = torch.nonzero(~state[7])[:, 0].to(torch.int32)
+    o, d = rays_o.index_select(0, active), rays_d.index_select(0, active)
+    return active, o + state[0].index_select(0, active)[:, None] * d
+
+
+def compact_step_reference(state, active, sdf1, rays_o, rays_d, space, count=None):
+    """Plain version of ``sphere_trace_step`` (same arguments and results):
+    gathers the listed rays, steps them with ``sphere_trace_step_reference``
+    and scatters their state back in place. The next list keeps the
+    listed order."""
+    sub = tuple(x.index_select(0, active) for x in state)
+    o, d = rays_o.index_select(0, active), rays_d.index_select(0, active)
+    new = sphere_trace_step_reference(sub, sdf1, o, d, space)
+    rows = active.long()
+    for x, v in zip(state, new):
+        x.index_copy_(0, rows, v)
+    keep = ~new[7]
+    next_active = active[keep]
+    next_points = o[keep] + new[0][keep][:, None] * d[keep]
+    if count is None:
+        count = torch.zeros(1, dtype=torch.int32, device=active.device)
+    count.fill_(next_active.shape[0])
+    return tuple(state), next_active, next_points, count
+
+
+def sphere_trace_step(state, active, sdf1, rays_o, rays_d, space, count=None):
+    """One march step of the listed rays: state (t, t_lo, s_lo, t_hi, s_hi
+    [N] float32, refining, hit, converged [N] bool), active [M] int32 the
+    indices of the rays still marching, sdf1 [M] the SDF at their probe
+    points o + t d in the list's order, count a zeroed int32 [1] tensor for
+    the next list's length (None: a new one). The state's tensors are
+    updated in place. Returns (state, next_active [M] int32, next_points
+    [M, 3], count): the first ``count`` entries are the rays still marching
+    and their next probe points, in an order that varies from run to
+    run."""
     if not rays_o.is_cuda:
-        return sphere_trace_step_reference(state, sdf1, rays_o, rays_d, space)
+        return compact_step_reference(state, active, sdf1, rays_o, rays_d, space, count)
     dev = rays_o.device
-    N = rays_o.shape[0]
+    N, M = rays_o.shape[0], active.shape[0]
     sdf1 = sdf1.detach().contiguous()
     for name, x, dtype, shape in (("rays_o", rays_o, torch.float32, (N, 3)),
                                   ("rays_d", rays_d, torch.float32, (N, 3)),
-                                  ("sdf1", sdf1, torch.float32, (N,))):
+                                  ("active", active, torch.int32, (M,)),
+                                  ("sdf1", sdf1, torch.float32, (M,))):
         _build.check_tensor(name, x, dtype, shape, dev)
     for name, x in zip(("t", "t_lo", "s_lo", "t_hi", "s_hi"), state[:5]):
         _build.check_tensor(name, x, torch.float32, (N,), dev)
     for name, x in zip(("refining", "hit", "converged"), state[5:]):
         _build.check_tensor(name, x, torch.bool, (N,), dev)
+    if count is None:
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+    _build.check_tensor("count", count, torch.int32, (1,), dev)
     kind, center, half = _primitive_args(space.bounding_primitive)
     grid = space.grid
     if grid is not None:
@@ -181,17 +224,20 @@ def sphere_trace_step(state, sdf1, rays_o, rays_d, space: TraceSpace):
         ex, ey, ez = grid.extent
     else:
         ex = ey = ez = 0.0
+    next_active = torch.empty(M, dtype=torch.int32, device=dev)
+    next_points = torch.empty(M, 3, dtype=torch.float32, device=dev)
     status = _build.kernels().vs_sphere_trace_step(
-        rays_o.data_ptr(), rays_d.data_ptr(), sdf1.data_ptr(),
-        *(x.data_ptr() for x in state),
+        rays_o.data_ptr(), rays_d.data_ptr(), active.data_ptr(), sdf1.data_ptr(),
+        *(x.data_ptr() for x in state), next_active.data_ptr(), next_points.data_ptr(),
+        count.data_ptr(),
         None if grid is None else grid.occupied.data_ptr(),
         None if grid is None else space.coarse.data_ptr(),
         ex, ey, ez, 0 if grid is None else grid.res, space.coarse_factor, space.eps_skip,
         kind, *center, *half, space.thresh, space.min_step,
-        N, torch.cuda.current_stream(dev).cuda_stream)
+        M, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "sphere_trace_step")
     launches["sphere_trace_step"] += 1
-    return tuple(state)
+    return tuple(state), next_active, next_points, count
 
 
 def trace_space(bounding_primitive, sdf_converged_tresh, min_step,
@@ -250,6 +296,38 @@ def trace_start(rays_o, rays_d, space: TraceSpace):
             never_trace)
 
 
+def march(eval_sdf, rays_o, rays_d, space: TraceSpace, nr_steps: int):
+    """The compacted march from ``trace_start``: each step evaluates
+    eval_sdf ([M, 3] -> [M]) at the active rays' probe points and steps
+    them (``sphere_trace_step``), until no ray is left or after nr_steps
+    steps. Returns (the state, the steps taken)."""
+    state = trace_start(rays_o, rays_d, space)
+    active, points = active_rays(state, rays_o, rays_d)
+    # a zeroed count a step, zeroed at once
+    counts = torch.zeros(max(nr_steps, 1), dtype=torch.int32, device=rays_o.device)
+    steps = 0
+    while steps < nr_steps and active.shape[0] > 0:
+        state, active, points, count = sphere_trace_step(
+            state, active, eval_sdf(points), rays_o, rays_d, space, counts[steps:steps + 1])
+        m = int(count.item())  # one host read a step: JAX's loop condition
+        active, points = active[:m], points[:m]
+        steps += 1
+    return state, steps
+
+
+def march_lockstep_reference(eval_sdf, rays_o, rays_d, space: TraceSpace, nr_steps: int):
+    """Plain version of ``march``: JAX's loop, every ray every step (the SDF
+    at all N points, ``sphere_trace_step_reference``) while any ray has not
+    converged. Returns (the state, the steps taken)."""
+    state = trace_start(rays_o, rays_d, space)
+    steps = 0
+    while steps < nr_steps and bool(torch.any(~state[7])):
+        state = sphere_trace_step_reference(state, eval_sdf(rays_o + state[0][:, None] * rays_d),
+                                            rays_o, rays_d, space)
+        steps += 1
+    return state, steps
+
+
 def sphere_trace(sdf_fn, rays_o, rays_d, bounding_primitive, nr_sphere_traces: int = 30,
                  sdf_converged_tresh: float = 1e-4, occupancy_grid=None,
                  min_step: float = 0.0) -> dict:
@@ -262,19 +340,13 @@ def sphere_trace(sdf_fn, rays_o, rays_d, bounding_primitive, nr_sphere_traces: i
     z [N, 1], is_hit [N] and steps (the steps taken, an int)."""
     space = trace_space(bounding_primitive, sdf_converged_tresh, min_step, occupancy_grid)
     rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-    state = trace_start(rays_o, rays_d, space)
 
     def eval_sdf(p):
         out = sdf_fn(p)
         sdf = out[0] if isinstance(out, tuple) else out
         return sdf[..., 0] if sdf.ndim > 1 else sdf
 
-    steps = 0
-    # one host read a step: JAX's loop condition
-    while steps < nr_sphere_traces and bool(torch.any(~state[7])):
-        sdf1 = eval_sdf(rays_o + state[0][:, None] * rays_d)
-        state = sphere_trace_step(state, sdf1, rays_o, rays_d, space)
-        steps += 1
+    state, steps = march(eval_sdf, rays_o, rays_d, space, nr_sphere_traces)
     t, _, _, _, _, refining, hit, converged = state
     # rays still refining at the cap have a proven bracket: hits
     hit = hit | refining
